@@ -1,0 +1,450 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``hyphy_tpu_torch``) on one card.
+
+    python3 chip_smoke.py               # every phase, iteration-capped fits
+    python3 chip_smoke.py --full-fit    # the same, with the fits run to convergence
+
+Run from the root of a checkout; it builds the CUDA kernels from the
+checkout's sources.  Phases, each of which fails the run if it fails:
+
+  1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
+  2. the build of every kernel source (one ``nvcc`` each, all at once);
+  3. every kernel against its plain PyTorch version on the card, at the
+     main path's shapes, in fp32 and fp64, with times;
+  4. the main path at full width — 1000 taxa x 2048 codons: load -> GTR fit
+     -> global MG94xREV fit — with the launch counts read around it;
+  5. the likelihood at ``bench.py``'s parameter point in fp64 and fp32:
+     against the JAX package's CPU fp64 value, with Taylor-route fp64
+     propagators against the HyPhy binary's value, the card's pruning
+     against the CPU's plain pruning on identical inputs, and times per
+     evaluation.
+
+It imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
+the card's name and power limit, one JSON object describing every kernel,
+and ``{"ok": true, "device": {...}}``; a longer record goes to
+``chiprun_out/chip_smoke.json``.  Without CUDA it exits with 1 and prints
+no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+# lnL of the JAX package on the CPU in fp64 at bench.py's parameter point on
+# its 1000-taxon x 2048-codon workload (BENCH_r05.json, "lnl_fp64").
+ANCHOR_FP64 = -4889039.92475695
+# The fp64 codon propagators come from an eigendecomposition whose absolute
+# round-off (~1e-15) is a large relative error in the tiny P entries of
+# multi-step changes across the workload's short branches (201 of 1998
+# branches are below 0.005).  The anchor is therefore only reproducible to
+# O(1) lnL: the HyPhy binary gives -4889041.17 (1.25 away), and phase 5
+# prints the same point with Taylor-route fp64 propagators, which keep those
+# entries accurate and are held to the HyPhy binary's value.  The card's
+# spectral fp64 value is held to the anchor within this bound (it lies 0.034
+# away); the kernel itself is held tightly by the identical-input comparison.
+ANCHOR_BOUND = 0.5
+HYPHY_LNL = -4889041.174467024   # bench_baseline.json "reference_lnL"
+HYPHY_BOUND = 1e-3         # |Taylor-route fp64 lnL - HYPHY_LNL| on the card
+FP32_BOUND = 10.0          # |lnL fp32 - lnL fp64| on the card
+
+# NVIDIA H100 SXM data sheet, dense, outside the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_BYTES = 3.35e12
+N_TAXA, N_CODONS, SEED = 1000, 2048, 11
+DEVICE = "cuda"
+# (5,2,700,61): the JAX package's kernel test; (500,2,2048,61): wider than
+# the bench tree's widest level (320 nodes), the row the kernels line
+# reports; (3,3,1000,61): K=3 with a ragged last pattern tile;
+# (320,2,6144,4): the GTR fit's widest level (6144 nucleotide patterns)
+KERNEL_SHAPES = [(5, 2, 700, 61), (500, 2, 2048, 61), (3, 3, 1000, 61),
+                 (320, 2, 6144, 4)]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def gpu_time_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(torch, fn, reps: int) -> list:
+    """Host-clock times of ``fn`` (each ended by a synchronize)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def profile_ms(torch, fn, path: str) -> dict:
+    """One run of ``fn`` under torch.profiler: wall time, summed kernel time,
+    the device's idle share, and the kernels that took longest; the full
+    table goes to ``path``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # kernel rows only: an operator's row repeats the time of its kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    with open(path, "w") as fh:
+        fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
+    return {"wall_ms": wall, "device_ms": device,
+            "idle_share": 1.0 - device / wall if wall > 0 else None,
+            "top": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top]}
+
+
+def phase_card(torch) -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    log(f"[card] nvidia-smi: {smi}")
+    log(f"[card] torch: {name}, devices {torch.cuda.device_count()}, "
+        f"torch {torch.__version__}, cuda {torch.version.cuda}")
+    return {"nvidia_smi": smi, "name": name, "count": torch.cuda.device_count()}
+
+
+def phase_build() -> dict:
+    from hyphy_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    seconds = time.perf_counter() - t0
+    log(f"[build] {', '.join(cuda_build.SOURCES)}: {seconds:.2f} s")
+    return {"seconds": seconds}
+
+
+def _level_bound(shape, dtype_name):
+    w, k, p, s = shape
+    size = 4 if dtype_name == "float32" else 8
+    nbytes = (w * k * p * s + w * k * s * s + w * p * s) * size
+    flops = 2 * w * k * p * s * s + w * (k - 1) * p * s
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels(torch) -> list:
+    from hyphy_tpu_torch.ops.level_products import (
+        level_products,
+        level_products_reference,
+    )
+
+    rel_bound = {"float32": 1e-5, "float64": 1e-12}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    rows = []
+    for shape in KERNEL_SHAPES:
+        w, k, p, s = shape
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            cc = torch.rand(shape, generator=gen, device=DEVICE, dtype=dtype) * 0.9 + 0.1
+            cp = torch.rand((w, k, s, s), generator=gen, device=DEVICE, dtype=dtype) * 0.2
+            out = level_products(cc, cp)
+            ref = level_products_reference(cc, cp)
+            torch.cuda.synchronize()
+            diff = (out - ref).abs()
+            max_abs = float(diff.max())
+            max_rel = float((diff / ref.abs()).max())
+            # kernel and plain version may round alike; the fp64 product of
+            # the same inputs shows the kernel's own fp32 error
+            vs64 = float(((out.double() - level_products_reference(cc.double(), cp.double()))
+                          .abs() / ref.double().abs()).max()) if dtype == torch.float32 else 0.0
+            reps = 20 if w * p > 10000 else 200
+            ms = gpu_time_ms(torch, lambda: level_products(cc, cp), reps)
+            plain_ms = gpu_time_ms(torch, lambda: level_products_reference(cc, cp), reps)
+            # yardstick the port never calls: torch.einsum + prod (two calls)
+            library_ms = gpu_time_ms(
+                torch, lambda: torch.einsum("wkij,wkpj->wkpi", cp, cc).prod(dim=1), reps)
+            bound_ms, bound_by = _level_bound(shape, name)
+            row = dict(shape=list(shape), dtype=name, max_abs_err=max_abs,
+                       max_rel_err=max_rel, max_rel_err_vs_fp64=vs64,
+                       rel_bound=rel_bound[name], ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            rows.append(row)
+            log(f"[kernel] level_products {shape} {name}: max abs {max_abs:.3e} "
+                f"max rel {max_rel:.3e} (bound {rel_bound[name]:.0e}), vs fp64 "
+                f"{vs64:.3e}; kernel_ms "
+                f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+                f"(torch.einsum + prod, two calls) bound_ms {bound_ms:.4f} ({bound_by})")
+            check(math.isfinite(max_rel) and max_rel <= rel_bound[name],
+                  f"level_products {shape} {name} disagrees with its plain version")
+            del cc, cp, out, ref, diff
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _write_inputs(tmp: str):
+    from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
+
+    aln = synthetic_codon_alignment(N_TAXA, N_CODONS, seed=SEED)
+    newick = random_tree_newick(N_TAXA, seed=SEED)
+    fasta = os.path.join(tmp, "bench.fasta")
+    with open(fasta, "w") as fh:
+        fh.write("".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
+    return aln, newick, fasta
+
+
+def _fits_from_log(path: str) -> list:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def phase_main_path(torch, fasta: str, newick: str, tmp: str, full_fit: bool) -> dict:
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.methods import common
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    opt_log = os.path.join(tmp, "opt.jsonl")
+    os.environ["HYPHY_TPU_OPT_LOG"] = opt_log
+    settings.warmup = not full_fit
+    level_products.launches = 0
+    try:
+        t0 = time.perf_counter()
+        data = common.load_codon_data(fasta, tree_newick=newick, device=DEVICE)
+        t1 = time.perf_counter()
+        gtr = common.fit_gtr(data)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mg = common.fit_partitioned_mg94(data, gtr)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        launches = level_products.launches
+        settings.warmup = False
+        del os.environ["HYPHY_TPU_OPT_LOG"]
+    stages = {"load_s": t1 - t0, "gtr_s": t2 - t1, "mg94_s": t3 - t2,
+              "gtr_lnl": gtr.loglik, "mg94_lnl": mg.loglik,
+              "iteration_cap": None if full_fit else 3, "level_products_launches": launches}
+    log(f"[main] load {stages['load_s']:.2f} s ({data.n_sequences} taxa, "
+        f"{data.codon_filter.n_patterns} codon / {data.nuc_filter.n_patterns} "
+        f"nucleotide patterns)")
+    log(f"[main] fit_gtr {stages['gtr_s']:.2f} s lnL {gtr.loglik:.6f}")
+    log(f"[main] fit_partitioned_mg94 {stages['mg94_s']:.2f} s lnL {mg.loglik:.6f} "
+        f"omega {mg.omegas.tolist()}")
+    fits = _fits_from_log(opt_log)
+    names = ["gtr", "cf3x4", "mg94 stage 1", "mg94 stage 2"]
+    check(len(fits) == len(names), f"expected {len(names)} fits, logged {len(fits)}")
+    stages["fits"] = []
+    for name, fit in zip(names, fits):
+        start, final = fit["trajectory"][0][0], fit["lnL"]
+        log(f"[main]   {name}: start {start:.6f} -> final {final:.6f} in "
+            f"{fit['iterations']} iterations, {fit['evaluations']} evaluations, "
+            f"{fit['seconds']:.2f} s")
+        stages["fits"].append({"name": name, "start": start, "final": final,
+                               "iterations": fit["iterations"],
+                               "evaluations": fit["evaluations"], "seconds": fit["seconds"]})
+        check(math.isfinite(final) and final >= start, f"{name} fit ended below its start")
+    check(math.isfinite(gtr.loglik) and math.isfinite(mg.loglik), "non-finite lnL")
+    check(launches > 0, "the main path launched no level_products kernel")
+    log(f"[main] level_products launches: {launches}")
+    return stages
+
+
+def phase_parity(torch, aln, newick: str) -> dict:
+    import numpy as np
+
+    from hyphy_tpu_torch.convert import params_from_numpy
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.data.genetic_code import GeneticCode
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.models import frequencies as freq_mod
+    from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
+    from hyphy_tpu_torch.models.codon import MG94xREVPartitionedOmega
+    from hyphy_tpu_torch.ops import expm, pruning
+    from hyphy_tpu_torch.ops.level_products import level_products
+    from hyphy_tpu_torch.tree.topology import Tree
+
+    # bench.py::build_problem, with the port
+    gc = GeneticCode("Universal")
+    filt = DataFilter.from_alignment(aln, "codon", genetic_code=gc)
+    tree = Tree.from_newick(newick, leaf_order=filt.names)
+    corners, codon_freqs = freq_mod.f3x4(filt, gc)
+    nb = tree.n_branches
+    model = MG94xREVPartitionedOmega(
+        gc, corners, codon_freqs,
+        nuc_lengths=np.maximum(np.abs(np.asarray(tree.input_lengths[:-1])), 1e-3),
+        branch_groups=np.zeros(nb, dtype=np.int32), n_groups=1, free_lengths=True,
+        device=DEVICE,
+    )
+    specs = model.parameter_specs(nb)
+    point = {k: np.full(s.shape, s.init, np.float64) for k, s in specs.items()}
+    point["alpha"] = model.nuc_lengths.cpu().numpy()
+    part = [Partition(filt, tree, model)]
+    res = {"depth": len(tree.levels())}
+    level_products.launches = 0
+    lnl = {}
+    for name, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+        lf = LikelihoodFunction(part, dtype=dtype, device=DEVICE)
+        params = params_from_numpy(point, DEVICE)
+        before = level_products.launches
+        with torch.no_grad():
+            lnl[name] = lf.loglik(params).item()
+        check(level_products.launches - before == res["depth"],
+              "one evaluation should launch the kernel once per tree level")
+
+        def value_and_grad():
+            p = {k: v.detach().requires_grad_() for k, v in params.items()}
+            v = lf.loglik(p)
+            v.backward()
+            return v
+
+        def value():
+            with torch.no_grad():
+                return lf.loglik(params)
+
+        def build():
+            with torch.no_grad():
+                return model.build({k: v.to(dtype) for k, v in params.items()}, nb)
+
+        res[name] = {"lnl": lnl[name], "eval_ms": wall_ms(torch, value, 5),
+                     "value_grad_ms": wall_ms(torch, value_and_grad, 5),
+                     "build_ms": wall_ms(torch, build, 5),
+                     "profile_value": profile_ms(
+                         torch, value,
+                         os.path.join("chiprun_out", f"profile_{name}_value.txt")),
+                     "profile_value_grad": profile_ms(
+                         torch, value_and_grad,
+                         os.path.join("chiprun_out", f"profile_{name}_value_grad.txt"))}
+        log(f"[parity] {name}: lnL {lnl[name]:.8f}; ms per eval "
+            f"{res[name]['eval_ms']}; per value+gradient {res[name]['value_grad_ms']}; "
+            f"of which model.build {res[name]['build_ms']}")
+        for what in ("value", "value_grad"):
+            prof = res[name][f"profile_{what}"]
+            log(f"[parity] {name} {what} profiled: wall {prof['wall_ms']:.3f} ms, "
+                f"kernels {prof['device_ms']:.3f} ms, device idle share "
+                f"{prof['idle_share']:.3f}; top {prof['top']}")
+        if name == "float64":
+            # the kernel path on the card against the plain path on the host,
+            # on identical propagators and leaf partials
+            # (the tree's leaves are in the filter's order)
+            leaves = torch.as_tensor(filt.leaf_partials(), device=DEVICE).double()
+            w = torch.as_tensor(filt.pattern_weights, device=DEVICE).double()
+            schedule = pruning.build_pruning_data(tree, DEVICE)
+            freqs = model.frequencies
+            with torch.no_grad():
+                p_mat = model.build(params, nb).p_matrices
+                site_card = pruning.site_log_likelihoods(p_mat, leaves, freqs, schedule)
+                site_host = pruning.site_log_likelihoods(
+                    p_mat.cpu(), leaves.cpu(), freqs.cpu(),
+                    pruning.build_pruning_data(tree, "cpu"))
+            total_card = float(site_card @ w)
+            total_host = float(site_host @ w.cpu())
+            res["identical_inputs_abs_diff"] = abs(total_card - total_host)
+            res["identical_inputs_max_site_diff"] = float(
+                (site_card.cpu() - site_host).abs().max())
+            log(f"[parity] fp64 pruning, card kernel vs host plain on identical "
+                f"inputs: |dlnL| {res['identical_inputs_abs_diff']:.3e}, max site "
+                f"{res['identical_inputs_max_site_diff']:.3e} (bound 1e-6)")
+            check(res["identical_inputs_abs_diff"] <= 1e-6,
+                  "card pruning disagrees with host pruning on identical inputs")
+            # the same point with fp64 propagators from the Taylor route,
+            # which keeps the tiny entries of short branches accurate
+            with torch.no_grad():
+                q_syn, q_non = model.basis_matrices(params)
+                gen = fill_diagonal_from_rows(q_syn + params["omega"][0] * q_non)
+                p_taylor = expm.shared_taylor_propagators(gen, params["alpha"])
+                res["taylor_fp64_lnl"] = float(pruning.site_log_likelihoods(
+                    p_taylor, leaves, freqs, schedule) @ w)
+            log(f"[parity] fp64 with Taylor-route propagators: lnL "
+                f"{res['taylor_fp64_lnl']:.8f} (HyPhy binary {HYPHY_LNL}: "
+                f"|d| {abs(res['taylor_fp64_lnl'] - HYPHY_LNL):.3e}, bound {HYPHY_BOUND})")
+            check(abs(res["taylor_fp64_lnl"] - HYPHY_LNL) <= HYPHY_BOUND,
+                  "Taylor-route fp64 lnL far from the HyPhy binary's")
+    res["anchor_abs_diff"] = abs(lnl["float64"] - ANCHOR_FP64)
+    res["fp32_vs_fp64"] = abs(lnl["float32"] - lnl["float64"])
+    res["launches"] = level_products.launches
+    log(f"[parity] |lnL fp64 - JAX CPU fp64 ({ANCHOR_FP64})| = "
+        f"{res['anchor_abs_diff']:.6f} (bound {ANCHOR_BOUND})")
+    log(f"[parity] |lnL fp32 - lnL fp64| = {res['fp32_vs_fp64']:.6f} (bound {FP32_BOUND})")
+    log(f"[parity] tree depth {res['depth']} = level_products launches per "
+        f"evaluation; launches in this phase: {res['launches']}")
+    check(res["anchor_abs_diff"] <= ANCHOR_BOUND, "fp64 lnL far from the JAX package's")
+    check(res["fp32_vs_fp64"] <= FP32_BOUND, "fp32 lnL far from fp64")
+    check(res["launches"] > 0, "the parity phase launched no kernel")
+    return res
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs one card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hyphy_tpu_torch.config import resolve_device
+    from hyphy_tpu_torch.ops.cuda_build import SOURCES
+
+    resolve_device(DEVICE)        # also turns TF32 off for fp32 matmuls
+    os.makedirs("chiprun_out", exist_ok=True)   # profiles and the record
+    record = {"card": phase_card(torch), "build": phase_build()}
+    record["kernels"] = phase_kernels(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        aln, newick, fasta = _write_inputs(tmp)
+        record["main_path"] = phase_main_path(torch, fasta, newick, tmp,
+                                              "--full-fit" in argv)
+    record["parity"] = phase_parity(torch, aln, newick)
+
+    wide = next(r for r in record["kernels"]
+                if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")
+    launches = {"level_products": record["main_path"]["level_products_launches"]}
+    kernels = [{
+        "name": name, "route": "cuda", "status": "ok",
+        "source": f"hyphy_tpu_torch/csrc/{name}.cu",
+        "replaces": "hyphy_tpu/ops/pallas_pruning.py:38",
+        "launches": launches[name], "max_abs_err": wide["max_abs_err"],
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
+    } for name in SOURCES]
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
+        json.dump(record, fh, indent=1)
+    log(f"{record['card']['nvidia_smi']}")
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": record["card"]["name"],
+        "count": record["card"]["count"]}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

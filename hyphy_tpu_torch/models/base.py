@@ -1,0 +1,80 @@
+"""Substitution-model interface.
+
+Counterpart of ``hyphy_tpu/models/base.py``.  A model is a plain Python
+object that keeps its own precomputed tensors on one device and whose
+``build`` maps a flat parameter dict to per-branch transition matrices.
+
+Canonical-form semantics (parity-critical): for a canonical model the
+engine multiplies each off-diagonal ``q_xy`` by ``pi_y`` and then sets the
+diagonal to minus the row sum (reference ``_Matrix::MultByFreqs``,
+``matrix.cpp:1546-1620``).  Model classes here do both explicitly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from hyphy_tpu_torch.models.parameters import Params, Specs
+from hyphy_tpu_torch.ops import expm as expm_ops
+
+
+@dataclasses.dataclass
+class ModelOutput:
+    """Everything the pruning engine needs for one partition:
+    ``p_matrices`` ``[n_branches, S, S]`` and ``root_freqs`` ``[S]``."""
+
+    p_matrices: torch.Tensor
+    root_freqs: torch.Tensor
+
+
+def fill_diagonal_from_rows(q: torch.Tensor) -> torch.Tensor:
+    """diag(Q) = -sum of off-diagonals (the generator condition)."""
+    n = q.shape[-1]
+    eye = torch.eye(n, dtype=q.dtype, device=q.device)
+    q = q * (1.0 - eye)
+    return q - eye * torch.sum(q, dim=-1, keepdim=True)
+
+
+def expected_rate(q: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    """sum_x pi_x sum_{y!=x} q_xy = -sum_x pi_x q_xx — the substitutions/
+    site per unit time (reference: ``_Matrix::BranchLengthExpression``,
+    ``matrix.cpp:2644``)."""
+    diag = torch.diagonal(q, dim1=-2, dim2=-1)
+    return -torch.sum(pi * diag, dim=-1)
+
+
+class SubstitutionModel:
+    """Base class; subclasses define the state space and Q construction."""
+
+    n_states: int
+    reversible: bool = True
+    datatype: str = "nucleotide"
+
+    def parameter_specs(self, n_branches: int) -> Specs:
+        raise NotImplementedError
+
+    def build(self, params: Params, n_branches: int) -> ModelOutput:
+        raise NotImplementedError
+
+    def branch_lengths(self, params: Params) -> torch.Tensor:
+        """Expected substitutions/site per branch at the current params."""
+        raise NotImplementedError
+
+    # helper shared by reversible models
+    def _propagate(self, q, pi, t):
+        """P(t_b) for all branches from one Q.
+
+        Small-state models (nucleotide 4x4, amino-acid 20x20) use the
+        shared-power Taylor propagator: the gradient of an
+        eigendecomposition (``torch.linalg.eigh`` as much as JAX's) divides
+        by eigenvalue gaps, so any degenerate-spectrum point (JC69 always;
+        HKY85 at kappa=1) yields NaN gradients and silently kills the fit.
+        Codon models keep the spectral route via their own propagators."""
+        if q.shape[-1] <= 20:
+            return expm_ops.shared_taylor_propagators(q, t)
+        if not self.reversible:
+            raise NotImplementedError("non-reversible models are not ported yet")
+        left, lam, right = expm_ops.reversible_spectral(q, pi)
+        return expm_ops.spectral_propagators(left, lam, right, t)

@@ -1,0 +1,213 @@
+"""Codon substitution models: the MG94xREV family.
+
+Counterpart of ``hyphy_tpu/models/codon.py`` (``MG94Base`` and
+``MG94xREVPartitionedOmega`` without multiple hits; the multi-hit classes,
+``MG94xREV`` and ``MG94xREVLocal`` are not ported yet).
+
+Q construction (parity-critical, reference ``MG_REV.bf:66-105``): entry
+(x -> y) is nonzero iff codons differ at exactly one nucleotide position,
+and equals
+
+    theta_<nucpair> * (alpha | beta) * n_pos(target_nucleotide)
+
+with ``theta_AG := 1`` and ``n`` the position-specific nucleotide
+frequencies.  The model is NOT canonical; the diagonal is -row-sum.  Every
+branch's generator is ``alpha_b * Q_syn + beta_b * Q_nonsyn``: when
+``beta_b / alpha_b`` takes only G distinct values, all branches share G
+generators.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hyphy_tpu_torch.config import resolve_device
+from hyphy_tpu_torch.data.genetic_code import GeneticCode
+from hyphy_tpu_torch.models.base import (
+    ModelOutput,
+    SubstitutionModel,
+    fill_diagonal_from_rows,
+)
+from hyphy_tpu_torch.models.dna import GTR_RATES
+from hyphy_tpu_torch.models.parameters import ParamSpec, Params, Specs
+from hyphy_tpu_torch.ops import expm as expm_ops
+
+_PAIR_INDEX = {p: i for i, p in enumerate(GTR_RATES)}
+_NUC = "ACGT"
+
+
+class MG94Base(SubstitutionModel):
+    """Shared machinery: sparse basis matrices Q_syn / Q_nonsyn."""
+
+    datatype = "codon"
+    reversible = True
+
+    def __init__(self, gc: GeneticCode, corner_freqs: np.ndarray,
+                 codon_freqs: np.ndarray, device=None):
+        self.device = dev = resolve_device(device)
+        self.gc = gc
+        self.n_states = gc.n_states
+        self.corner_freqs = np.asarray(corner_freqs)  # [4, 3]
+        self.frequencies = torch.as_tensor(
+            np.asarray(codon_freqs, dtype=np.float64).reshape(-1), device=dev
+        )
+        tbl = gc.one_step_table
+        self._pair_i = torch.as_tensor(tbl["pairs"][:, 0].astype(np.int64), device=dev)
+        self._pair_j = torch.as_tensor(tbl["pairs"][:, 1].astype(np.int64), device=dev)
+        theta_idx = [
+            _PAIR_INDEX[_NUC[min(fn, tn)] + _NUC[max(fn, tn)]]
+            for fn, tn in zip(tbl["from_nuc"], tbl["to_nuc"])
+        ]
+        self._theta_idx = torch.tensor(theta_idx, dtype=torch.int64, device=dev)
+        # position-specific frequency of the *target* nucleotide
+        self._multiplier = torch.as_tensor(
+            self.corner_freqs[tbl["to_nuc"], tbl["position"]].astype(np.float64),
+            device=dev,
+        )
+        self._syn = torch.as_tensor(tbl["synonymous"].astype(np.float64), device=dev)
+
+    # -- construction pieces ------------------------------------------------
+
+    @staticmethod
+    def theta_specs() -> Specs:
+        """GTR exchangeabilities shared with the nucleotide fit; AG := 1."""
+        return {
+            f"theta_{p}": ParamSpec(init=0.25, lower=0.0, upper=10000.0)
+            for p in GTR_RATES
+            if p != "AG"
+        }
+
+    def _theta_vector(self, params: Params) -> torch.Tensor:
+        dtype = params["theta_AC"].dtype
+        one = torch.ones((), dtype=dtype, device=self.device)
+        return torch.stack(
+            [one if p == "AG" else params[f"theta_{p}"] for p in GTR_RATES]
+        )
+
+    def basis_matrices(self, params: Params):
+        """(Q_syn, Q_nonsyn) [S,S] with zero diagonals, in the parameter
+        dtype (an fp32 evaluation stays fp32 throughout)."""
+        theta = self._theta_vector(params)
+        dtype = theta.dtype
+        entries = theta[self._theta_idx] * self._multiplier.to(dtype)
+        s = self.n_states
+        zeros = torch.zeros((s, s), dtype=dtype, device=self.device)
+        syn = self._syn.to(dtype)
+        idx = (self._pair_i, self._pair_j)
+        q_syn = zeros.index_put(idx, entries * syn)
+        q_non = zeros.index_put(idx, entries * (1.0 - syn))
+        return q_syn, q_non
+
+    def propagators_grouped(
+        self,
+        params: Params,
+        alpha_b: torch.Tensor,         # [B] branch syn rates (the expm time)
+        ratio_groups: torch.Tensor,    # [G] beta/alpha per group
+        group_of_branch: np.ndarray,   # [B] int in [0, G), concrete
+    ) -> torch.Tensor:
+        """P_b = expm(alpha_b * (Q_syn + r_{g(b)} * Q_nonsyn)) — G
+        generators shared by all branches.  Branches are partitioned per
+        group on the host, so each group's propagators use shared factors
+        instead of per-branch copies."""
+        q_syn, q_non = self.basis_matrices(params)
+        m = fill_diagonal_from_rows(
+            q_syn[None] + ratio_groups[:, None, None] * q_non[None]
+        )  # [G,S,S]
+        # fp64: one eigh per group, shared-factor matmuls.  fp32: the
+        # shared-power Taylor route, which stays at fp32 round-off (an fp32
+        # eigendecomposition of a 61-state generator loses far more).
+        use_spectral = m.dtype == torch.float64
+        if use_spectral:
+            left, lam, right = expm_ops.reversible_spectral(m, self.frequencies)
+
+        def group_propagators(g, times):
+            if use_spectral:
+                return expm_ops.spectral_propagators(left[g], lam[g], right[g], times)
+            return expm_ops.shared_taylor_propagators(m[g], times)
+
+        groups = np.asarray(group_of_branch)
+        n_groups = int(ratio_groups.shape[0])
+        if n_groups == 1:
+            return group_propagators(0, alpha_b)
+        parts, order = [], []
+        for g in range(n_groups):
+            idx = np.nonzero(groups == g)[0]
+            if idx.size == 0:
+                continue
+            order.append(idx)
+            parts.append(group_propagators(g, alpha_b[torch.as_tensor(idx, device=self.device)]))
+        perm = np.argsort(np.concatenate(order), kind="stable")
+        return torch.cat(parts, dim=0)[torch.as_tensor(perm, device=self.device)]
+
+    def rate_per_branch(self, params: Params, alpha_b, beta_b) -> torch.Tensor:
+        """Branch length in expected substitutions per NUCLEOTIDE site —
+        codon-model branch lengths carry a 1/3 factor (reference:
+        ``model.BranchLengthExpression``, model_functions.bf:696)."""
+        q_syn, q_non = self.basis_matrices(params)
+        pi = self.frequencies.to(q_syn.dtype)
+        rs = q_syn.sum(-1) @ pi
+        rn = q_non.sum(-1) @ pi
+        return (alpha_b * rs + beta_b * rn) / 3.0
+
+
+class MG94xREVPartitionedOmega(MG94Base):
+    """The 'Global MG94xREV' fit of the selection methods
+    (``estimators.FitCodonModel`` with partitioned_omega +
+    proportional_branch_length_scaler, ``shared-load-file.bf:706``):
+
+      beta_b  := alpha_b * omega_{group(b)}
+      alpha_b := scaler * nuc_branch_length_b   (from the GTR fit)
+
+    Free parameters: 5 thetas, one omega per branch group, one scaler
+    (initialized at 3), or, with ``free_lengths``, one alpha per branch.
+    """
+
+    def __init__(
+        self,
+        gc: GeneticCode,
+        corner_freqs: np.ndarray,
+        codon_freqs: np.ndarray,
+        nuc_lengths: np.ndarray,        # [B] GTR branch lengths
+        branch_groups: np.ndarray,      # [B] int group per branch
+        n_groups: int,
+        free_lengths: bool = False,     # if True, alpha_b free (init from nuc)
+        device=None,
+    ):
+        super().__init__(gc, corner_freqs, codon_freqs, device=device)
+        self.nuc_lengths = torch.as_tensor(
+            np.asarray(nuc_lengths, dtype=np.float64), device=self.device
+        )
+        self.branch_groups = np.asarray(branch_groups, dtype=np.int64)
+        self._branch_groups_t = torch.as_tensor(self.branch_groups, device=self.device)
+        self.n_groups = n_groups
+        self.free_lengths = free_lengths
+
+    def parameter_specs(self, n_branches: int) -> Specs:
+        specs = self.theta_specs()
+        # omega is shared across partitions in a joint fit; the branch-length
+        # scaler is per-partition (shared-load-file.bf:716)
+        specs["omega"] = ParamSpec(
+            init=0.25, lower=0.0, upper=10000.0, shape=(self.n_groups,), shared=True
+        )
+        if self.free_lengths:
+            specs["alpha"] = ParamSpec(init=0.15, lower=0.0, upper=10000.0, shape=(n_branches,))
+        else:
+            specs["scaler"] = ParamSpec(init=3.0, lower=0.0, upper=10000.0, shared=False)
+        return specs
+
+    def _alphas(self, params: Params) -> torch.Tensor:
+        if self.free_lengths:
+            return params["alpha"]
+        return params["scaler"] * self.nuc_lengths.to(params["scaler"].dtype)
+
+    def build(self, params: Params, n_branches: int) -> ModelOutput:
+        p = self.propagators_grouped(
+            params, self._alphas(params), params["omega"], self.branch_groups
+        )
+        return ModelOutput(p_matrices=p, root_freqs=self.frequencies)
+
+    def branch_lengths(self, params: Params) -> torch.Tensor:
+        alpha = self._alphas(params)
+        beta = alpha * params["omega"][self._branch_groups_t]
+        return self.rate_per_branch(params, alpha, beta)

@@ -1,0 +1,139 @@
+"""Batched matrix exponentials for transition-probability matrices.
+
+Counterpart of ``hyphy_tpu/ops/expm.py``, in plain PyTorch (no kernel yet):
+
+  * :func:`shared_taylor_propagators` — ``P(t_b) = expm(q t_b)`` for ONE
+    generator and many branch times, from shared powers of ``q`` and a
+    shared binary squaring ladder (reference semantics of
+    ``_Matrix::Exponentiate``, ``src/core/matrix.cpp:5537``).
+  * :func:`reversible_spectral` / :func:`spectral_propagators` — for a
+    reversible ``Q`` with stationary ``pi``, one symmetric eigendecomposition
+    (``torch.linalg.eigh``) gives ``P(t)`` for every branch as one matmul.
+
+Every tensor created here takes its dtype and device from the inputs: the
+JAX package runs with x64 on, where a bare literal is fp64, while torch's
+default is fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def row_renormalize(p: torch.Tensor) -> torch.Tensor:
+    """Restore exact row-stochasticity: P_ii += 1 - sum_j P_ij
+    (reference: ``matrix.cpp:5837-5852`` diag_populator)."""
+    n = p.shape[-1]
+    deficit = 1.0 - torch.sum(p, dim=-1)
+    return p + deficit[..., None] * torch.eye(n, dtype=p.dtype, device=p.device)
+
+
+def _clip_negative(p: torch.Tensor) -> torch.Tensor:
+    # torch.maximum splits the gradient at ties as jnp.maximum does
+    # (clamp_min would pass all of it), so exact zeros match the reference
+    return torch.maximum(p, torch.zeros((), dtype=p.dtype, device=p.device))
+
+
+def shared_taylor_propagators(
+    q: torch.Tensor,             # [S, S] one shared generator
+    t: torch.Tensor,             # [B] per-branch times
+) -> torch.Tensor:
+    """P(t_b) = expm(q * t_b) for ONE generator and MANY times.
+
+    The powers q^k are shared by every branch; each branch sums the series
+    with its own coefficients (one [B,K]x[K,S^2] contraction) and applies
+    the integer part of its scaled time as a binary product against shared
+    matrices ``expm(2 qn)^(2^k)``.  Stays at working-precision round-off in
+    fp32, so it is the fp32 route for grouped propagators.
+    """
+    dtype, device = q.dtype, q.device
+    # series tail after K terms at argument 2: 2^(K+1)/(K+1)!
+    # (fp32: 2^17/17! ~ 4e-10 — past fp32 round-off)
+    terms = 28 if dtype == torch.float64 else 16
+    # ladder/bit depth: supports ||Q t|| up to ~2^(s+1) before the
+    # saturation clamp below; depth 11 covers ||Q t|| ~ 4096
+    max_squarings = 11
+    s_dim = q.shape[-1]
+    # normalize the generator to unit inf-norm; fold the factor into t
+    norm = torch.clamp_min(torch.max(torch.sum(torch.abs(q), dim=-1)), 1e-30)
+    m = torch.ceil(torch.log2(norm))
+    qn = q * torch.exp2(-m).to(dtype)
+    t_eff = t * torch.exp2(m).to(dtype)
+    # saturate beyond the ladder's range: at ||Q t|| ~ 2^(s+1) the chain is
+    # essentially mixed (P ~ stationary), and an un-saturated argument would
+    # make the truncated series diverge — huge finite "likelihoods" that
+    # derail line searches probing large branch lengths
+    t_eff = torch.minimum(
+        t_eff,
+        torch.tensor(2.0 ** (max_squarings + 1) - 0.01, dtype=dtype, device=device),
+    )
+
+    eye = torch.eye(s_dim, dtype=dtype, device=device)
+    pows = [eye]
+    for _ in range(terms):
+        pows.append(pows[-1] @ qn)
+    pows = torch.stack(pows)                               # [K+1, S, S]
+    ks = torch.arange(1, terms + 1, dtype=dtype, device=device)
+
+    # All P(t) commute (one generator): P(t) = Taylor(r) @ expm(2 qn)^j with
+    # t_eff = r + 2j, r in [0, 2).  The integer part is a binary product
+    # against SHARED matrices M_k = expm(2 qn)^(2^k): each bit step is one
+    # [B*S, S] x [S, S] GEMM.
+    j_int = torch.floor(t_eff * 0.5)
+    j = j_int.to(torch.int64)
+    r = t_eff - 2.0 * j_int                                # [B], in [0, 2)
+
+    # coef[b, k] = r_b^k / k! via a stable running product
+    coef = torch.cumprod(r[:, None] / ks[None, :], dim=1)  # [B, K]
+    ones = torch.ones((t.shape[0], 1), dtype=dtype, device=device)
+    coef = torch.cat([ones, coef], dim=1)
+    p = torch.einsum("bk,kij->bij", coef, pows)
+
+    coef2 = torch.cumprod(2.0 / ks, dim=0)                 # Taylor at r = 2
+    coef2 = torch.cat([torch.ones((1,), dtype=dtype, device=device), coef2])
+    mk = torch.einsum("k,kij->ij", coef2, pows)            # expm(2 qn)
+
+    for k in range(max_squarings):
+        bit = ((j >> k) & 1).to(torch.bool)
+        pnew = (p.reshape(-1, s_dim) @ mk).reshape(p.shape)
+        p = torch.where(bit[:, None, None], pnew, p)
+        mk = mk @ mk
+    return row_renormalize(_clip_negative(p))
+
+
+# ---------------------------------------------------------------------------
+# reversible fast path
+
+def reversible_spectral(q: torch.Tensor, pi: torch.Tensor):
+    """Spectral decomposition of a reversible generator.
+
+    For reversible Q with stationary pi, ``B = D^{1/2} Q D^{-1/2}`` is
+    symmetric (D = diag(pi)); then ``expm(Qt) = D^{-1/2} U e^{L t} U^T
+    D^{1/2}``.  Returns ``(left [..,n,n], eigenvalues [..,n], right
+    [..,n,n])`` with ``P(t) = left @ diag(exp(L t)) @ right``.
+
+    Zero-frequency states are guarded with a floor so absent states stay
+    inert rather than producing NaNs.
+    """
+    tiny = torch.finfo(q.dtype).tiny
+    pi_safe = torch.clamp_min(pi.to(q.dtype), tiny)
+    sqrt_pi = torch.sqrt(pi_safe)
+    b = q * (sqrt_pi[..., :, None] / sqrt_pi[..., None, :])
+    b = 0.5 * (b + b.transpose(-1, -2))  # kill asymmetric round-off
+    lam, u = torch.linalg.eigh(b)
+    left = u / sqrt_pi[..., :, None]
+    right = u.transpose(-1, -2) * sqrt_pi[..., None, :]
+    return left, lam, right
+
+
+def spectral_propagators(left, lam, right, t):
+    """P(t) for a batch of times from one spectral decomposition.
+
+    ``t[..., None]`` must broadcast against ``lam``: e.g. shared Q
+    (lam [n], t [B]) -> [B, n, n]; per-branch Q (lam [B, n], t [B]) ->
+    [B, n, n].
+    """
+    el = torch.exp(lam * t[..., None])
+    p = (left * el[..., None, :]) @ right
+    # clip tiny negative round-off; renormalize rows exactly
+    return row_renormalize(_clip_negative(p))

@@ -1,0 +1,73 @@
+"""The port stands alone: it imports neither ``jax`` nor ``hyphy_tpu``, and
+its entry points do not fall back to the CPU when CUDA is missing."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "hyphy_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+import hyphy_tpu_torch
+for mod in pkgutil.walk_packages(hyphy_tpu_torch.__path__, "hyphy_tpu_torch."):
+    importlib.import_module(mod.name)
+leaked = sorted(m for m in sys.modules
+                if m == "hyphy_tpu" or m.startswith("hyphy_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_imports_without_jax_or_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout
+
+
+def test_sources_reference_neither_jax_nor_the_jax_package():
+    bad = re.compile(
+        r"^\s*(import|from)\s+jax\b|\bhyphy_tpu\.|from\s+hyphy_tpu\s|import\s+hyphy_tpu\b"
+    )
+    offenders = []
+    for path in PACKAGE.rglob("*.py"):
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            # references to the port itself are allowed
+            if bad.search(line.replace("hyphy_tpu_torch", "")):
+                offenders.append(f"{path.relative_to(REPO)}:{n}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.models.dna import GTR
+    from hyphy_tpu_torch.optimize.core import maximize
+    from hyphy_tpu_torch.tree.topology import Tree
+    from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(settings, "device", "cuda")
+    aln = synthetic_codon_alignment(4, 5, seed=1)
+    filt = DataFilter.from_alignment(aln, "nucleotide")
+    tree = Tree.from_newick(random_tree_newick(4, seed=1), leaf_order=filt.names)
+    model = GTR(np.full(4, 0.25), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LikelihoodFunction([Partition(filt, tree, model)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GTR(np.full(4, 0.25))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        maximize(lambda p: -p["x"] ** 2, {}, {})
+    # asking for the CPU is the only way onto it
+    lf = LikelihoodFunction([Partition(filt, tree, model)], device="cpu")
+    assert lf.device.type == "cpu" and lf.dtype == torch.float64
