@@ -10,7 +10,9 @@ checkout's sources.  Phases, each of which fails the run if it fails:
   1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
   2. the build of every kernel source (one ``nvcc`` each, all at once);
   3. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes, in fp32 and fp64, with times;
+     main path's shapes and at alignment and edge shapes, in fp32 and fp64,
+     with times; then K1 summed over the 23 real level widths of the main
+     path's tree, for the codon and the nucleotide pattern counts;
   4. the main path at full width — 1000 taxa x 2048 codons: load -> GTR fit
      -> global MG94xREV fit — with the launch counts read around it;
   5. the likelihood at ``bench.py``'s parameter point in fp64 and fp32:
@@ -64,6 +66,18 @@ DEVICE = "cuda"
 # (320,2,6144,4): the GTR fit's widest level (6144 nucleotide patterns)
 KERNEL_SHAPES = [(5, 2, 700, 61), (500, 2, 2048, 61), (3, 3, 1000, 61),
                  (320, 2, 6144, 4)]
+# shapes the kernel's tiling is exposed to: odd P (misaligned tile starts),
+# K=3 ragged, the amino-acid width (8 state groups), full lanes on one node,
+# a polytomy at S=4
+EDGE_SHAPES = [(7, 2, 2047, 61), (4, 3, 1001, 61), (2, 2, 333, 20),
+               (1, 2, 2048, 64), (9, 5, 130, 4)]
+# Tree.levels() widths of random_tree_newick(N_TAXA, seed=SEED), all K=2;
+# one evaluation launches K1 once per level (phase 5 checks the count)
+LEVEL_WIDTHS = [320, 200, 133, 90, 61, 49, 36, 27, 18, 13, 12, 8, 6, 5, 4, 3,
+                3, 3, 3, 2, 1, 1, 1]
+# (patterns, states) of the codon (MG94) and nucleotide (GTR) evaluations
+LEVEL_PATTERNS = [(N_CODONS, 61), (3 * N_CODONS, 4)]
+REL_BOUND = {"float32": 1e-5, "float64": 1e-12}
 
 
 def log(msg: str) -> None:
@@ -76,11 +90,19 @@ def check(ok: bool, msg: str) -> None:
 
 
 def gpu_time_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches, after a warm-up."""
+    """Mean device time of ``fn`` over ``reps`` launches, after a warm-up.
+    A sleep kernel queued first keeps the device busy while the host queues
+    the launches, so that a small kernel is timed back to back and not at the
+    host's launch rate."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once_s = time.perf_counter() - t0      # host and device time of one call
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * reps * once_s * 2e9))   # cycles, at <= 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -104,8 +126,9 @@ def wall_ms(torch, fn, reps: int) -> list:
 
 def profile_ms(torch, fn, path: str) -> dict:
     """One run of ``fn`` under torch.profiler: wall time, summed kernel time,
-    the device's idle share, and the kernels that took longest; the full
-    table goes to ``path``."""
+    the device's idle share, the kernels that took longest, and the device
+    time of each K1 launch in launch order; the full table goes to
+    ``path``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -125,11 +148,14 @@ def profile_ms(torch, fn, path: str) -> dict:
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     device = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    k1 = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and "level_products_kernel" in e.name), key=lambda e: e.time_range.start)
     with open(path, "w") as fh:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": 1.0 - device / wall if wall > 0 else None,
-            "top": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top]}
+            "top": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top],
+            "k1_launch_ms": [dev_us(e) / 1e3 for e in k1]}
 
 
 def phase_card(torch) -> dict:
@@ -163,54 +189,77 @@ def _level_bound(shape, dtype_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(torch) -> list:
+def _hold_level(torch, shape, dtype, gen, reps: int) -> dict:
+    """K1 at one shape: against its plain version, then kernel, plain and
+    library times and the bound."""
     from hyphy_tpu_torch.ops.level_products import (
         level_products,
         level_products_reference,
     )
 
-    rel_bound = {"float32": 1e-5, "float64": 1e-12}
+    w, k, p, s = shape
+    name = str(dtype).split(".")[1]
+    cc = torch.rand(shape, generator=gen, device=DEVICE, dtype=dtype) * 0.9 + 0.1
+    cp = torch.rand((w, k, s, s), generator=gen, device=DEVICE, dtype=dtype) * 0.2
+    out = level_products(cc, cp)
+    ref = level_products_reference(cc, cp)
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    max_abs = float(diff.max())
+    max_rel = float((diff / ref.abs()).max())
+    # kernel and plain version may round alike; the fp64 product of the
+    # same inputs shows the kernel's own fp32 error
+    vs64 = float(((out.double() - level_products_reference(cc.double(), cp.double()))
+                  .abs() / ref.double().abs()).max()) if dtype == torch.float32 else 0.0
+    ms = gpu_time_ms(torch, lambda: level_products(cc, cp), reps)
+    plain_ms = gpu_time_ms(torch, lambda: level_products_reference(cc, cp), reps)
+    # yardstick the port never calls: torch.einsum + prod (two calls)
+    library_ms = gpu_time_ms(
+        torch, lambda: torch.einsum("wkij,wkpj->wkpi", cp, cc).prod(dim=1), reps)
+    bound_ms, bound_by = _level_bound(shape, name)
+    check(math.isfinite(max_rel) and max_rel <= REL_BOUND[name],
+          f"level_products {shape} {name} disagrees with its plain version "
+          f"(max rel {max_rel:.3e})")
+    return dict(shape=list(shape), dtype=name, max_abs_err=max_abs,
+                max_rel_err=max_rel, max_rel_err_vs_fp64=vs64,
+                rel_bound=REL_BOUND[name], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_kernels(torch) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
-    for shape in KERNEL_SHAPES:
+    for shape in KERNEL_SHAPES + EDGE_SHAPES:
         w, k, p, s = shape
         for dtype in (torch.float32, torch.float64):
-            name = str(dtype).split(".")[1]
-            cc = torch.rand(shape, generator=gen, device=DEVICE, dtype=dtype) * 0.9 + 0.1
-            cp = torch.rand((w, k, s, s), generator=gen, device=DEVICE, dtype=dtype) * 0.2
-            out = level_products(cc, cp)
-            ref = level_products_reference(cc, cp)
-            torch.cuda.synchronize()
-            diff = (out - ref).abs()
-            max_abs = float(diff.max())
-            max_rel = float((diff / ref.abs()).max())
-            # kernel and plain version may round alike; the fp64 product of
-            # the same inputs shows the kernel's own fp32 error
-            vs64 = float(((out.double() - level_products_reference(cc.double(), cp.double()))
-                          .abs() / ref.double().abs()).max()) if dtype == torch.float32 else 0.0
-            reps = 20 if w * p > 10000 else 200
-            ms = gpu_time_ms(torch, lambda: level_products(cc, cp), reps)
-            plain_ms = gpu_time_ms(torch, lambda: level_products_reference(cc, cp), reps)
-            # yardstick the port never calls: torch.einsum + prod (two calls)
-            library_ms = gpu_time_ms(
-                torch, lambda: torch.einsum("wkij,wkpj->wkpi", cp, cc).prod(dim=1), reps)
-            bound_ms, bound_by = _level_bound(shape, name)
-            row = dict(shape=list(shape), dtype=name, max_abs_err=max_abs,
-                       max_rel_err=max_rel, max_rel_err_vs_fp64=vs64,
-                       rel_bound=rel_bound[name], ms=ms,
-                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+            row = _hold_level(torch, shape, dtype, gen, 20 if w * p > 10000 else 200)
             rows.append(row)
-            log(f"[kernel] level_products {shape} {name}: max abs {max_abs:.3e} "
-                f"max rel {max_rel:.3e} (bound {rel_bound[name]:.0e}), vs fp64 "
-                f"{vs64:.3e}; kernel_ms "
-                f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-                f"(torch.einsum + prod, two calls) bound_ms {bound_ms:.4f} ({bound_by})")
-            check(math.isfinite(max_rel) and max_rel <= rel_bound[name],
-                  f"level_products {shape} {name} disagrees with its plain version")
-            del cc, cp, out, ref, diff
+            log(f"[kernel] level_products {shape} {row['dtype']}: max abs "
+                f"{row['max_abs_err']:.3e} max rel {row['max_rel_err']:.3e} (bound "
+                f"{row['rel_bound']:.0e}), vs fp64 {row['max_rel_err_vs_fp64']:.3e}; "
+                f"kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                f"library_ms {row['library_ms']:.4f} (torch.einsum + prod, two "
+                f"calls) bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
             torch.cuda.empty_cache()
-    return rows
+    # one evaluation's K1 work: every level of the tree at its real width
+    evals = []
+    for p, s in LEVEL_PATTERNS:
+        for dtype in (torch.float32, torch.float64):
+            levels = [_hold_level(torch, (w, 2, p, s), dtype, gen, 20 if w * p > 10000 else 100)
+                      for w in LEVEL_WIDTHS]
+            total = {key: sum(r[key] for r in levels)
+                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            evals.append(dict(patterns=p, states=s, dtype=levels[0]["dtype"],
+                              levels=len(levels), **total,
+                              max_rel_err=max(r["max_rel_err"] for r in levels),
+                              per_level_ms=[r["ms"] for r in levels]))
+            log(f"[kernel] level_products per evaluation, {len(levels)} levels at "
+                f"P={p} S={s} {levels[0]['dtype']}: kernel_ms {total['ms']:.4f} "
+                f"plain_ms {total['plain_ms']:.4f} library_ms {total['library_ms']:.4f} "
+                f"bound_ms {total['bound_ms']:.4f}; per level "
+                f"{[round(r['ms'], 4) for r in levels]}")
+            torch.cuda.empty_cache()
+    return {"shapes": rows, "evaluation": evals}
 
 
 def _write_inputs(tmp: str):
@@ -311,6 +360,8 @@ def phase_parity(torch, aln, newick: str) -> dict:
     point["alpha"] = model.nuc_lengths.cpu().numpy()
     part = [Partition(filt, tree, model)]
     res = {"depth": len(tree.levels())}
+    check([len(ids) for ids in tree.levels()] == LEVEL_WIDTHS,
+          "phase 3's per-evaluation rows assume other level widths")
     level_products.launches = 0
     lnl = {}
     for name, dtype in (("float64", torch.float64), ("float32", torch.float32)):
@@ -353,6 +404,10 @@ def phase_parity(torch, aln, newick: str) -> dict:
             log(f"[parity] {name} {what} profiled: wall {prof['wall_ms']:.3f} ms, "
                 f"kernels {prof['device_ms']:.3f} ms, device idle share "
                 f"{prof['idle_share']:.3f}; top {prof['top']}")
+        prof = res[name]["profile_value"]
+        log(f"[parity] {name} value profiled: K1 {sum(prof['k1_launch_ms']):.4f} ms in "
+            f"{len(prof['k1_launch_ms'])} launches; per launch "
+            f"{[round(t, 4) for t in prof['k1_launch_ms']]}")
         if name == "float64":
             # the kernel path on the card against the plain path on the host,
             # on identical propagators and leaf partials
@@ -425,8 +480,17 @@ def main(argv) -> int:
                                               "--full-fit" in argv)
     record["parity"] = phase_parity(torch, aln, newick)
 
-    wide = next(r for r in record["kernels"]
+    wide = next(r for r in record["kernels"]["shapes"]
                 if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")
+    per_eval = next(r for r in record["kernels"]["evaluation"]
+                    if r["states"] == 61 and r["dtype"] == "float32")
+    # K1 inside a real fp32 evaluation (phase 5's profile) against phase 3's
+    # per-level times on fresh random inputs, level by level
+    in_eval = record["parity"]["float32"]["profile_value"]["k1_launch_ms"]
+    check(len(in_eval) == len(LEVEL_WIDTHS), "the fp32 profile lost K1 launches")
+    log(f"[kernel] level_products fp32 per evaluation: phase 3 {per_eval['ms']:.4f} ms, "
+        f"inside the profiled evaluation {sum(in_eval):.4f} ms; per level, phase 3 / "
+        f"evaluation: {[round(a / b, 3) for a, b in zip(per_eval['per_level_ms'], in_eval)]}")
     launches = {"level_products": record["main_path"]["level_products_launches"]}
     kernels = [{
         "name": name, "route": "cuda", "status": "ok",
@@ -435,6 +499,9 @@ def main(argv) -> int:
         "launches": launches[name], "max_abs_err": wide["max_abs_err"],
         "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
+        "eval_ms": per_eval["ms"], "eval_profiled_ms": sum(in_eval),
+        "eval_library_ms": per_eval["library_ms"],
+        "eval_bound_ms": per_eval["bound_ms"],
     } for name in SOURCES]
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1)

@@ -3,109 +3,272 @@
 //   out[w, p, i] = prod_k sum_j cp[w, k, i, j] * cc[w, k, p, j]
 //
 // cc [W, K, P, S] gathered child CLVs, cp [W, K, S, S] child transition
-// matrices, out [W, P, S]; all contiguous, one dtype (float or double).
-// Replaces the Pallas kernel hyphy_tpu/ops/pallas_pruning.py::_level_kernel.
+// matrices, out [W, P, S]; all contiguous, one dtype (float or double),
+// S <= 64, K >= 1 (polytomies included). Replaces the Pallas kernel
+// hyphy_tpu/ops/pallas_pruning.py:38 (_level_kernel).
 //
-// Design (a simple CUDA-core kernel; no wgmma or TMA yet):
-//   * grid (pattern tile, node w); 256 threads = 4 pattern groups x 64
-//     state lanes, so S <= 64;
-//   * for each child k the block stages P[w, k] (S*S) and the child's CLV
-//     tile (TILE_P*S) in shared memory — at most 45.4 KB in fp64, under the
-//     48 KB a block gets without opt-in;
-//   * lane i reads row i of P (odd stride S: conflict-free banks), the CLV
-//     value of its pattern is a warp-wide broadcast; each thread keeps
-//     TILE_P/4 dot products, multiplies them into a running product held in
-//     registers across k, and stores once, coalesced along i;
-//   * the ragged last tile is masked on load and store (no padding with
-//     ones in memory); K is a runtime argument, so polytomies work.
+// What bounds it on an H100: at the codon fit's widest levels the fp32 work
+// is bytes = operations (2*S FLOP per CLV element read: 15.3 GFLOP and
+// 764 MB at (W,K,P,S) = (500,2,2048,61), 0.228 ms each against 67 TFLOP/s
+// and 3.35 TB/s); in fp64 the bytes bind (0.456 ms) with the CUDA-core
+// operation time (0.450 ms) just under. So the kernel has to keep the FMA
+// pipes busy while it streams the CLVs once.
+//
+// Why CUDA cores: tensor cores would only lower the operation roof, which
+// does not bind in fp64 and equals the byte roof in fp32; TF32 (10-bit
+// mantissa) would break the fp32 path's 1e-5 relative accuracy. Why no TMA:
+// a tensor map needs 16-byte global strides and a bulk copy a 16-byte
+// aligned start and length, but a CLV row is S*4 = 244 bytes at S = 61 and a
+// tile starts at (w*K*P + p0)*S elements, unaligned in general.
+//
+// Design (one kernel template over T, SG state groups, RP patterns):
+//   * 256 threads = SG state groups x 256/SG pattern groups. A thread owns
+//     RP = 8 patterns (pg + q*256/SG) x RS states (sg + SG*r), RS = 8 in
+//     fp32 and 4 in fp64, and keeps RP*RS dot products and RP*RS running
+//     products over the children in registers. Per j it reads RS + RP
+//     words from shared memory for RP*RS FMAs: 0.25 words per FMA in fp32,
+//     what the SM's 128 bytes per clock of shared-memory delivery feed at
+//     its 128 FMAs per clock. SG = ceil(S/RS) rounded up to a power of two
+//     is chosen by the wrapper's launch plan; a tile is TP = RP*256/SG
+//     patterns. A warp holds 8 pattern groups x 4 state groups (fewer state
+//     groups when SG < 4); at one j it reads 8 CLV rows and 4 P rows, all
+//     of stride S, in distinct banks when S is odd (61) or 4.
+//   * Shared layout per ring stage: P[w,k] and the CLV tile, each as the
+//     contiguous range it is in global memory, copied by 16-byte
+//     cp.async.cg chunks. A range's start is unaligned in general, so its
+//     copy lands shifted by the same amount mod 16 bytes; only the head and
+//     the tail (< 16 bytes each) go by element-sized copies. (4-byte copies
+//     into a padded layout ran the copies alone at 1.6x the DRAM bound.)
+//   * No pad: the j loop runs exactly to S. P rows i >= S and CLV rows
+//     past a ragged tile's end hold stale shared memory; they feed only
+//     outputs that are never stored.
+//   * A 2-stage cp.async ring: a stage is (P[w,k], CLV tile [k, p0:p0+TP]);
+//     the block computes child k while child k+1 is in flight. P is re-read
+//     per stage (from L2).
+//   * Grid (n_tiles, W), one resident block per SM: block (t, w) computes
+//     pattern tile t of node w over all K children, then stores it.
+//   * The plan's RP, TP and shared-memory size are an echo: launch()
+//     derives them from SG and refuses a plan that disagrees, so the
+//     wrapper's tests of the plan test this layout.
+//
+// K1_PART selects a part of the kernel for k1_breakdown.py's timings:
+// 0 the whole kernel (the only build the port uses), 1 the copies,
+// barriers and stores with an empty j loop, 2 the j loop on stale shared
+// memory without the copies.
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+#ifndef K1_PART
+#define K1_PART 0
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLanes = 64;                  // state lanes; S <= kLanes
-constexpr int kGroups = kThreads / kLanes;  // pattern groups
+constexpr int kMaxStates = 64;
+constexpr int kMaxSmem = 232448;   // per block, after opt-in
+constexpr int kMaxDevices = 64;
+constexpr int kPatternsPerThread = 8;
 
-template <typename T> struct TileP;
-template <> struct TileP<float>  { static constexpr int value = 64; };
-template <> struct TileP<double> { static constexpr int value = 32; };
+template <typename T> struct StatesPerThread { static constexpr int value = 8; };
+template <> struct StatesPerThread<double> { static constexpr int value = 4; };
+
+// Shared memory of one instantiation: two ring stages, each P's range and
+// the CLV tile's range with room for the alignment shift, 16-byte aligned.
+template <typename T, int SG, int RP>
+struct Layout {
+  static constexpr int kV = 16 / static_cast<int>(sizeof(T));   // elements per chunk
+  static constexpr int kRowsP = StatesPerThread<T>::value * SG;
+  static constexpr int kTile = RP * kThreads / SG;
+  __host__ __device__ static int round(int n) { return (n + kV - 1) / kV * kV; }
+  __host__ __device__ static int p_elems(int S) { return round(kRowsP * S + kV); }
+  __host__ __device__ static int stage_elems(int S) {
+    return p_elems(S) + round(kTile * S + kV);
+  }
+  static int smem_bytes(int S) { return 2 * stage_elems(S) * static_cast<int>(sizeof(T)); }
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int shift_of(const T* src) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(src) / sizeof(T)) % (16 / sizeof(T)));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Queue the copy of n contiguous elements into buf + shift_of(src).
+template <typename T>
+__device__ __forceinline__ void copy_range(T* buf, const T* src, int n) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  T* dst = buf + shift_of(src);
+  const int head = min(n, (kV - shift_of(src)) % kV);
+  const int chunks = (n - head) / kV;
+  const int tail = head + chunks * kV;
+  const int tid = threadIdx.x;
+  for (int c = tid; c < chunks; c += kThreads)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_addr(dst + head + c * kV)), "l"(src + head + c * kV)
+                 : "memory");
+  // the head by threads [0, head), the tail by threads [kV, kV + n - tail)
+  const int e = tid < head ? tid : (tid >= kV && tid - kV < n - tail ? tail + tid - kV : -1);
+  if (e >= 0)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(smem_addr(dst + e)), "l"(src + e), "n"(sizeof(T)) : "memory");
+}
+
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <typename T, int SG, int RP>
+__global__ void __launch_bounds__(kThreads, 1)
 level_products_kernel(const T* __restrict__ cc, const T* __restrict__ cp,
                       T* __restrict__ out, int K, int P, int S) {
-  constexpr int kTile = TileP<T>::value;
-  constexpr int kPer = kTile / kGroups;
+  using L = Layout<T, SG, RP>;
+  constexpr int RS = StatesPerThread<T>::value;
+  constexpr int kPG = kThreads / SG;          // pattern groups
+  constexpr int kTile = L::kTile;             // patterns per tile
+  constexpr int kSGW = SG < 4 ? SG : 4;       // state groups per warp
+  constexpr int kPGW = 32 / kSGW;             // pattern groups per warp
+  constexpr int kWarpsS = SG / kSGW;          // warps across the states
+
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_p = reinterpret_cast<T*>(smem_raw);   // [S, S]
-  T* s_c = s_p + S * S;                      // [kTile, S]
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int w = blockIdx.y;
   const int p0 = blockIdx.x * kTile;
-  const int np = min(kTile, P - p0);
-  const int lane = threadIdx.x % kLanes;     // state i
-  const int group = threadIdx.x / kLanes;    // patterns group + q * kGroups
+  const int np = min(kTile, P - p0);          // patterns in this tile
 
-  T prod[kPer];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) prod[q] = T(1);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sg = lane % kSGW + kSGW * (warp % kWarpsS);
+  const int pg = lane / kSGW + kPGW * (warp / kWarpsS);
 
+  const int stage_elems = L::stage_elems(S);
+  const int p_elems = L::p_elems(S);
+  auto g_p = [&](int k) { return cp + (static_cast<size_t>(w) * K + k) * S * S; };
+  auto g_c = [&](int k) {
+    return cc + ((static_cast<size_t>(w) * K + k) * P + p0) * S;
+  };
+  auto queue = [&](int k) {                   // child k into stage k & 1
+    if (K1_PART == 2) return;
+    T* stage = smem + (k & 1) * stage_elems;
+    copy_range(stage, g_p(k), S * S);
+    copy_range(stage + p_elems, g_c(k), np * S);
+  };
+  queue(0);
+  commit_group();
+
+  T prod[RP][RS];
   for (int k = 0; k < K; ++k) {
-    const size_t wk = static_cast<size_t>(w) * K + k;
-    const T* g_p = cp + wk * S * S;
-    const T* g_c = cc + (wk * P + p0) * S;
-    __syncthreads();  // the previous child's tiles are no longer read
-    for (int e = threadIdx.x; e < S * S; e += kThreads) s_p[e] = g_p[e];
-    for (int e = threadIdx.x; e < np * S; e += kThreads) s_c[e] = g_c[e];
-    __syncthreads();
-    if (lane < S) {
-      T acc[kPer];
+    if (k + 1 < K) queue(k + 1);
+    commit_group();                           // possibly empty: keeps the count
+    wait_all_but_one();
+    __syncthreads();                          // child k visible to every thread
+
+    const T* stage = smem + (k & 1) * stage_elems;
+    const T* pa = stage + shift_of(g_p(k)) + sg * S;              // state row sg
+    const T* pb = stage + p_elems + shift_of(g_c(k)) + pg * S;    // pattern row pg
+    const int a_step = SG * S, b_step = kPG * S;
+    T acc[RP][RS];
 #pragma unroll
-      for (int q = 0; q < kPer; ++q) acc[q] = T(0);
-      const T* row = s_p + lane * S;
-      for (int j = 0; j < S; ++j) {
-        const T a = row[j];
+    for (int q = 0; q < RP; ++q)
 #pragma unroll
-        for (int q = 0; q < kPer; ++q) {
-          const int p = group + q * kGroups;
-          // rows p >= np of s_c are stale; their sums are never stored
-          acc[q] = fma(a, s_c[p * S + j], acc[q]);
-        }
-      }
+      for (int r = 0; r < RS; ++r) acc[q][r] = T(0);
+#pragma unroll 2
+    for (int j = 0; j < (K1_PART == 1 ? 0 : S); ++j) {
+      T a[RS], b[RP];
 #pragma unroll
-      for (int q = 0; q < kPer; ++q) prod[q] *= acc[q];
+      for (int r = 0; r < RS; ++r) a[r] = pa[r * a_step + j];
+#pragma unroll
+      for (int q = 0; q < RP; ++q) b[q] = pb[q * b_step + j];
+#pragma unroll
+      for (int q = 0; q < RP; ++q)
+#pragma unroll
+        for (int r = 0; r < RS; ++r) acc[q][r] = fma(a[r], b[q], acc[q][r]);
     }
-  }
-  if (lane < S) {
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int p = group + q * kGroups;
-      if (p < np) out[(static_cast<size_t>(w) * P + p0 + p) * S + lane] = prod[q];
+    for (int q = 0; q < RP; ++q)
+#pragma unroll
+      for (int r = 0; r < RS; ++r) prod[q][r] = k == 0 ? acc[q][r] : prod[q][r] * acc[q][r];
+    __syncthreads();                          // stage k & 1 free for child k+2
+  }
+
+  T* o = out + (static_cast<size_t>(w) * P + p0) * S;
+#pragma unroll
+  for (int q = 0; q < RP; ++q) {
+    const int p = pg + q * kPG;
+    if (p < np) {
+#pragma unroll
+      for (int r = 0; r < RS; ++r) {
+        const int i = sg + SG * r;
+        if (i < S) o[p * S + i] = prod[q][r];
+      }
     }
   }
 }
 
+template <typename T, int SG>
+int launch_one(const T* cc, const T* cp, T* out, int W, int K, int P, int S,
+               int smem, cudaStream_t stream) {
+  constexpr int RP = kPatternsPerThread;
+  using L = Layout<T, SG, RP>;
+  if (smem != L::smem_bytes(S) || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (W == 0 || P == 0) return 0;
+  auto kernel = level_products_kernel<T, SG, RP>;
+  // the opt-in above 48 KB is per function and device; set it once each
+  static bool opted_in[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) opted_in[dev] = true;
+  }
+  const int n_tiles = (P + L::kTile - 1) / L::kTile;
+  kernel<<<dim3(n_tiles, W), kThreads, smem, stream>>>(cc, cp, out, K, P, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The plan (SG, RP, TP, smem) comes from the wrapper. Anything the
+// kernel could not run safely is refused with cudaErrorInvalidValue.
 template <typename T>
 int launch(const T* cc, const T* cp, T* out, int W, int K, int P, int S,
-           cudaStream_t stream) {
-  if (S < 1 || S > kLanes || K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (W == 0 || P == 0) return 0;
-  constexpr int kTile = TileP<T>::value;
-  const dim3 grid((P + kTile - 1) / kTile, W);
-  const size_t smem = static_cast<size_t>(S * S + kTile * S) * sizeof(T);
-  level_products_kernel<T><<<grid, kThreads, smem, stream>>>(cc, cp, out, K, P, S);
-  return static_cast<int>(cudaGetLastError());
+           int SG, int RP, int TP, int smem, cudaStream_t stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (S < 1 || S > kMaxStates || K < 1 || W < 0 || P < 0) return bad;
+  if (RP != kPatternsPerThread || StatesPerThread<T>::value * SG < S ||
+      TP * SG != RP * kThreads) return bad;
+  switch (SG) {
+    case 1:  return launch_one<T, 1>(cc, cp, out, W, K, P, S, smem, stream);
+    case 2:  return launch_one<T, 2>(cc, cp, out, W, K, P, S, smem, stream);
+    case 4:  return launch_one<T, 4>(cc, cp, out, W, K, P, S, smem, stream);
+    case 8:  return launch_one<T, 8>(cc, cp, out, W, K, P, S, smem, stream);
+    case 16: return launch_one<T, 16>(cc, cp, out, W, K, P, S, smem, stream);
+    default: return bad;
+  }
 }
 
 }  // namespace
 
 extern "C" int level_products_f32(const float* cc, const float* cp, float* out,
-                                  int W, int K, int P, int S, void* stream) {
-  return launch<float>(cc, cp, out, W, K, P, S, static_cast<cudaStream_t>(stream));
+                                  int W, int K, int P, int S, int SG, int RP, int TP,
+                                  int smem_bytes, void* stream) {
+  return launch<float>(cc, cp, out, W, K, P, S, SG, RP, TP, smem_bytes,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int level_products_f64(const double* cc, const double* cp, double* out,
-                                  int W, int K, int P, int S, void* stream) {
-  return launch<double>(cc, cp, out, W, K, P, S, static_cast<cudaStream_t>(stream));
+                                  int W, int K, int P, int S, int SG, int RP, int TP,
+                                  int smem_bytes, void* stream) {
+  return launch<double>(cc, cp, out, W, K, P, S, SG, RP, TP, smem_bytes,
+                        static_cast<cudaStream_t>(stream));
 }

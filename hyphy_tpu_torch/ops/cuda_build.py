@@ -8,7 +8,8 @@ The library is loaded with ``ctypes``; nothing here includes PyTorch's
 headers, so one build takes seconds.  Nothing is compiled when this module
 is imported: the first launch of a kernel builds it, or a caller builds all
 sources at once with :func:`build_all` (one ``nvcc`` per source, run
-concurrently).
+concurrently).  ``defines`` (``NAME=VALUE`` strings passed as ``-D``)
+build a variant of a source into its own library.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ _FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -45,21 +46,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _target(name: str) -> pathlib.Path:
+def _flags(defines: Sequence[str]) -> tuple:
+    return _FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _target(name: str, defines: Sequence[str] = ()) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: Sequence[str]):
     """Start ``nvcc`` for one source; returns (process, tmp path, target)
     or None when the library is already built."""
-    target = _target(name)
+    target = _target(name, defines)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -74,12 +79,12 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, target)  # atomic: concurrent builders never see half a file
 
 
-def build_all(names: Sequence[str] = SOURCES) -> None:
+def build_all(names: Sequence[str] = SOURCES, defines: Sequence[str] = ()) -> None:
     """Compile every named source, all ``nvcc`` processes at once."""
     jobs = {}
     try:
         for name in names:
-            job = _start(name)
+            job = _start(name, defines)
             if job is not None:
                 jobs[name] = job
     finally:
@@ -94,12 +99,13 @@ def build_all(names: Sequence[str] = SOURCES) -> None:
             raise RuntimeError("\n".join(errors))
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            build_all([name])
-            lib = ctypes.CDLL(str(_target(name)))
-            _loaded[name] = lib
+            build_all([name], defines)
+            lib = ctypes.CDLL(str(_target(name, defines)))
+            _loaded[key] = lib
         return lib

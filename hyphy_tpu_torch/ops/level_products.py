@@ -7,23 +7,33 @@ transition-weighted messages:
     prod[w, p, i] = PROD_k  sum_j P[w, k, i, j] * clv[w, k, p, j]
 
 It replaces the Pallas TPU kernel
-``hyphy_tpu/ops/pallas_pruning.py::_level_kernel`` (reached there through
-``level_products`` -> ``_forward`` -> ``_call``).  The CUDA source is
-``csrc/level_products.cu``: a simple CUDA-core kernel (no tensor cores,
-``wgmma`` or TMA yet) templated on float and double, with a grid over
-(pattern tile, node), ``P[w, k]`` and the child's CLV tile staged in shared
-memory one child at a time, and the product over children held in
-registers.
+``hyphy_tpu/ops/pallas_pruning.py:38`` (``_level_kernel``, reached there
+through ``level_products`` -> ``_forward`` -> ``_call``).  The CUDA source is
+``csrc/level_products.cu``.
 
-What bounds it on an H100 SXM (the card reports itself as "NVIDIA H100
-80GB HBM3", 700 W): one full 1000-taxon x 2048-pattern 61-state
-evaluation of ``bench.py``'s tree sends 1,998 child messages through it,
-i.e. 1,998 x 2 x 2048 x 61^2 = 30.5 GFLOP, and moves 1.53 GB in fp32
-(3.05 GB in fp64: every child CLV and propagator read once, every parent
-written once).  Against the card's peaks outside the tensor cores
-(67 TFLOP/s fp32, 34 TFLOP/s fp64; NVIDIA's data sheet) and 3.35 TB/s,
-that is 0.46 ms per evaluation in fp32 (operations and bytes about equal)
-and 0.91 ms in fp64 (bytes).  The measured times are in PERF.md.
+What bounds it on an H100 SXM (67 TFLOP/s fp32 and 34 TFLOP/s fp64 outside
+the tensor cores, 3.35 TB/s; NVIDIA's data sheet): each CLV element read
+feeds 2*S FLOP, so at S = 61 the fp32 kernel is bound by bytes and
+operations alike (0.228 ms each at (W,K,P,S) = (500,2,2048,61)) and the
+fp64 kernel by bytes (0.456 ms, operations 0.450 ms).  Tensor cores would
+only lower a roof that does not bind, and TF32 would break the fp32 path's
+1e-5 accuracy; TMA cannot address the tiles (a 61-state CLV row is 244
+bytes, not a multiple of 16, and tile starts are unaligned).
+
+The design: one CUDA-core kernel template, register-tiled (a thread keeps
+8 patterns x 8 states in fp32, 8 x 4 in fp64, of dot products and of
+running products over the children, so that it reads 0.25 words of shared
+memory per FMA in fp32), fed by a 2-stage ``cp.async`` ring of (P[w, k],
+CLV tile) pairs.  Each pair is copied as the contiguous ranges it is in
+global memory, by 16-byte chunks into shared memory shifted to the
+source's alignment; the j loop runs exactly to S, so nothing is padded.
+The state-group count SG (ceil(S / states per thread) rounded up to a
+power of two) is a template constant, so the 4-state GTR levels run the
+same kernel.  The grid is (pattern tiles, W): one block per tile of one
+node, over all its children.  :func:`_launch_plan` chooses SG; the
+pattern count per thread RP, the tile TP and the shared memory follow
+from it and are passed as an echo, which the C entry point recomputes
+and refuses when it disagrees.
 
 The wrapper :func:`level_products` is a ``torch.autograd.Function``.  On a
 CUDA tensor it launches the kernel (or raises: there is no fallback); on a
@@ -42,8 +52,38 @@ import torch
 
 from hyphy_tpu_torch.ops import cuda_build
 
-_MAX_STATES = 64      # the kernel's state lanes per block
+_MAX_STATES = 64      # 16 state groups x 4 states (fp64), 8 x 8 (fp32)
 _MAX_NODES = 65535    # grid.y
+_THREADS = 256
+_PATTERNS_PER_THREAD = 8
+# states per thread, as csrc/level_products.cu instantiates the kernel
+_STATES_PER_THREAD = {torch.float32: 8, torch.float64: 4}
+
+
+def _launch_plan(w: int, k: int, p: int, s: int, dtype: torch.dtype):
+    """(SG, RP, TP, smem_bytes) for one level launch.
+
+    SG state groups of RS states (8 in fp32, 4 in fp64) cover S; each
+    thread keeps RP = 8 patterns, so a tile holds TP = RP * 256 / SG
+    patterns.  A ring stage holds P[w, k] and the CLV tile as the
+    contiguous ranges they are in global memory, each with room for its
+    alignment shift (< 16 bytes) and for the rows the kernel reads past S
+    (RS * SG state rows), rounded to 16 bytes; two stages make the shared
+    memory.  The launch has ceil(P / TP) x W blocks."""
+    size = dtype.itemsize
+    rs = _STATES_PER_THREAD[dtype]
+    sg = 1
+    while rs * sg < s:
+        sg *= 2
+    rp = _PATTERNS_PER_THREAD
+    tp = rp * _THREADS // sg
+    chunk = 16 // size
+
+    def rounded(n):
+        return -(-n // chunk) * chunk
+
+    smem = 2 * (rounded(rs * sg * s + chunk) + rounded(tp * s + chunk)) * size
+    return sg, rp, tp, smem
 
 
 def level_products_reference(cc: torch.Tensor, cp: torch.Tensor) -> torch.Tensor:
@@ -71,14 +111,15 @@ def _check(cc: torch.Tensor, cp: torch.Tensor) -> None:
 def _launch(cc: torch.Tensor, cp: torch.Tensor) -> torch.Tensor:
     _check(cc, cp)
     w, k, p, s = cc.shape
+    plan = _launch_plan(w, k, p, s, cc.dtype)
     out = torch.empty((w, p, s), dtype=cc.dtype, device=cc.device)
     lib = cuda_build.load("level_products")
     fn = lib.level_products_f32 if cc.dtype == torch.float32 else lib.level_products_f64
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(cc.device):
         stream = torch.cuda.current_stream(cc.device).cuda_stream
-        err = fn(cc.data_ptr(), cp.data_ptr(), out.data_ptr(), w, k, p, s, stream)
+        err = fn(cc.data_ptr(), cp.data_ptr(), out.data_ptr(), w, k, p, s, *plan, stream)
     if err != 0:
         raise RuntimeError(f"level_products kernel launch failed: CUDA error {err}")
     level_products.launches += 1
