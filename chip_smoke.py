@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``hyphy_tpu_torch``) on one card.
 
-    python3 chip_smoke.py               # every phase, iteration-capped fits
-    python3 chip_smoke.py --full-fit    # the same, with the fits run to convergence
+    python3 chip_smoke.py               # every phase; FEL as `warmup fel` (capped fits)
+    python3 chip_smoke.py --full-fit    # the same, with FEL's fits run to convergence
 
 Run from the root of a checkout; it builds the CUDA kernels from the
 checkout's sources.  Phases, each of which fails the run if it fails:
@@ -13,13 +13,25 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      main path's shapes and at alignment and edge shapes, in fp32 and fp64,
      with times; then K1 summed over the 23 real level widths of the main
      path's tree, for the codon and the nucleotide pattern counts;
-  4. the main path at full width — 1000 taxa x 2048 codons: load -> GTR fit
-     -> global MG94xREV fit — with the launch counts read around it;
+  4. the main path at full width — FEL on 1000 taxa x 2048 codons as a
+     user runs it, ``python -m hyphy_tpu_torch warmup fel`` (L-BFGS capped
+     at 3 iterations, Nelder-Mead at 32; ``fel`` uncapped with
+     ``--full-fit``), called in-process: load -> GTR fit -> global MG94xREV
+     fit -> per-site grid starts, alternative and null Nelder-Mead -> LRT
+     and JSON, with the launch counts read around it, seconds per stage,
+     Nelder-Mead iterations and ms per batched site evaluation (taken by
+     wrapping the port's stage functions here), and the JSON checked;
   5. the likelihood at ``bench.py``'s parameter point in fp64 and fp32:
      against the JAX package's CPU fp64 value, with Taylor-route fp64
      propagators against the HyPhy binary's value, the card's pruning
      against the CPU's plain pruning on identical inputs, and times per
-     evaluation.
+     evaluation;
+  6. FEL's per-site objective at phase 4's MG94 fit and three points of
+     the SRV start grid: fp64 Taylor and fp64 spectral on the card against
+     the host on identical inputs, fp32 against fp64 Taylor on every
+     pattern; then one batched evaluation of all 2048 patterns per route
+     and the batched fp64 eigendecomposition alone, timed by CUDA events,
+     the host clock and the profiler, beside their bounds.
 
 It imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
@@ -78,6 +90,23 @@ LEVEL_WIDTHS = [320, 200, 133, 90, 61, 49, 36, 27, 18, 13, 12, 8, 6, 5, 4, 3,
 # (patterns, states) of the codon (MG94) and nucleotide (GTR) evaluations
 LEVEL_PATTERNS = [(N_CODONS, 61), (3 * N_CODONS, 4)]
 REL_BOUND = {"float32": 1e-5, "float64": 1e-12}
+# phase 6: rows of FEL's SRV start grid, (alpha, beta) = (0.01, 0.1),
+# (1, 1), (10, 50); sites held card against host; bounds on the per-site lnL
+SITE_GRID_ROWS = [0, 3, 10]
+SITE_PARITY_N = 64
+SITE_HOST_BOUND = 1e-9     # |d site lnL|, fp64, card vs host on identical inputs
+# ... except the spectral route at (0.01, 0.1): there the branches' effective
+# lengths are short, their multi-step P entries are sums of eigenvector
+# terms that cancel to ~1e-14 (ROADMAP.md 3.5), and the card's and the
+# host's summation orders alone give site lnLs up to 3.4e-7 apart at the capped
+# fit's binary tree and 3.6e-4 apart at the uncapped fit's ~1000-child root
+# (H100); the Taylor route holds 1e-9 at the same points
+SITE_SPECTRAL_BOUNDS = {(0.01, 0.1): 1e-3}
+SITE_FP32_BOUND = 0.03     # |d site lnL|, fp32 vs fp64 Taylor (7.3e-3 on the H100)
+# the profiler holds one event per launch: the looped fp64 eigh launches
+# ~150 kernels per matrix, so the spectral route and eigh are profiled on
+# this many sites (events and the host clock time all of them)
+SITE_PROFILE_N = 256
 
 
 def log(msg: str) -> None:
@@ -154,6 +183,7 @@ def profile_ms(torch, fn, path: str) -> dict:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": 1.0 - device / wall if wall > 0 else None,
+            "launches": sum(e.count for e in kernels),
             "top": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top],
             "k1_launch_ms": [dev_us(e) / 1e3 for e in k1]}
 
@@ -270,7 +300,10 @@ def _write_inputs(tmp: str):
     fasta = os.path.join(tmp, "bench.fasta")
     with open(fasta, "w") as fh:
         fh.write("".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
-    return aln, newick, fasta
+    tree_path = os.path.join(tmp, "bench.nwk")
+    with open(tree_path, "w") as fh:
+        fh.write(newick)
+    return aln, newick, fasta, tree_path
 
 
 def _fits_from_log(path: str) -> list:
@@ -278,37 +311,146 @@ def _fits_from_log(path: str) -> list:
         return [json.loads(line) for line in fh if line.strip()]
 
 
-def phase_main_path(torch, fasta: str, newick: str, tmp: str, full_fit: bool) -> dict:
-    from hyphy_tpu_torch.config import settings
-    from hyphy_tpu_torch.methods import common
+class _StageClock:
+    """Phase 4's instruments, kept out of the package: wraps the port's
+    stage functions (load, GTR, MG94, grid starts, the two Nelder-Mead
+    fits) and the per-site objective they are handed, records when each
+    stage ends (after a synchronize) and how long each batched objective
+    evaluation took, and keeps the MG94 stage's data and fit for phase 6.
+    ``restore`` puts the package's functions back."""
+
+    def __init__(self, torch):
+        from hyphy_tpu_torch.methods import common, fel
+
+        self.torch = torch
+        self.ends = {}                  # stage -> perf_counter at its end
+        self.evals = {"grid": [], "alt_nm": [], "null_nm": []}   # ms each
+        self.n_params = {}
+        self.mg94_args = self.mg94 = None
+        self._saved = []
+        for module, name, stage in (
+            (common, "load_codon_data_multi", "load"),
+            (common, "fit_gtr_multi", "gtr"),
+            (common, "fit_partitioned_mg94_multi", "mg94"),
+            (fel, "grid_best_starts", "grid"),
+            (fel, "vmapped_nelder_mead", None),
+        ):
+            original = getattr(module, name)
+            self._saved.append((module, name, original))
+            setattr(module, name, self._wrap(original, stage))
+
+    def _counted(self, bucket, objective):
+        def wrapped(idx, params):
+            t0 = time.perf_counter()
+            out = objective(idx, params)
+            self.torch.cuda.synchronize()
+            self.evals[bucket].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    def _wrap(self, fn, stage):
+        def wrapped(*args, **kwargs):
+            name = stage or ("alt_nm" if "alt_nm" not in self.ends else "null_nm")
+            if name in self.evals:
+                args = (self._counted(name, args[0]),) + args[1:]
+            if name.endswith("_nm"):
+                self.n_params[name] = len(args[1])
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.ends[name] = time.perf_counter()
+            if name == "mg94":
+                self.mg94_args, self.mg94 = args, out
+            return out
+        return wrapped
+
+    def restore(self):
+        for module, name, original in self._saved:
+            setattr(module, name, original)
+
+
+def _check_site_table(result: dict, constant) -> dict:
+    """FEL's JSON as a user reads it: headers, one row per codon, finite
+    entries, p-values in [0, 1], LRT >= 0, zero rows at constant sites."""
+    import numpy as np
+
+    names = [h[0] for h in result["MLE"]["headers"]]
+    check(names == ["alpha", "beta", "alpha=beta", "LRT", "p-value", "Total branch length"],
+          f"FEL headers {names}")
+    table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    check(table.shape == (N_CODONS, 6), f"FEL site table of shape {table.shape}")
+    check(bool(np.isfinite(table).all()), "non-finite entries in the FEL site table")
+    p, lrt = table[:, 4], table[:, 3]
+    check(bool(((p >= 0) & (p <= 1)).all()), "FEL p-values outside [0, 1]")
+    check(bool((lrt >= 0).all()), "negative FEL LRT")
+    check(bool((table[constant] == [0, 0, 0, 0, 1, 0]).all()),
+          "constant sites without zero rows")
+    for key in ("analysis", "input", "fits", "data partitions", "tested", "timers"):
+        check(key in result, f"FEL JSON lacks {key!r}")
+    return {"sites": int(table.shape[0]), "constant_sites": int(constant.sum()),
+            "sites_p_le_0.1": int((p <= 0.1).sum()),
+            "positive_p_le_0.1": int(((p <= 0.1) & (table[:, 1] > table[:, 0])).sum()),
+            "max_lrt": float(lrt.max())}
+
+
+def phase_main_path(torch, fasta: str, tree_path: str, tmp: str, full_fit: bool) -> dict:
+    """FEL at full width as a user runs it: ``python -m hyphy_tpu_torch
+    [warmup] fel``, called in-process, with the launch counts read around
+    it."""
+    import statistics
+
+    from hyphy_tpu_torch import cli
     from hyphy_tpu_torch.ops.level_products import level_products
 
     opt_log = os.path.join(tmp, "opt.jsonl")
+    out_json = os.path.join(tmp, "bench.FEL.json")
+    argv = ["fel", "--alignment", fasta, "--tree", tree_path, "--output", out_json]
+    if not full_fit:
+        argv = ["warmup"] + argv
     os.environ["HYPHY_TPU_OPT_LOG"] = opt_log
-    settings.warmup = not full_fit
+    clock = _StageClock(torch)
     level_products.launches = 0
     try:
         t0 = time.perf_counter()
-        data = common.load_codon_data(fasta, tree_newick=newick, device=DEVICE)
-        t1 = time.perf_counter()
-        gtr = common.fit_gtr(data)
+        rc = cli.main(argv)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        mg = common.fit_partitioned_mg94(data, gtr)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
+        t_end = time.perf_counter()
     finally:
         launches = level_products.launches
-        settings.warmup = False
+        clock.restore()
         del os.environ["HYPHY_TPU_OPT_LOG"]
-    stages = {"load_s": t1 - t0, "gtr_s": t2 - t1, "mg94_s": t3 - t2,
-              "gtr_lnl": gtr.loglik, "mg94_lnl": mg.loglik,
-              "iteration_cap": None if full_fit else 3, "level_products_launches": launches}
-    log(f"[main] load {stages['load_s']:.2f} s ({data.n_sequences} taxa, "
-        f"{data.codon_filter.n_patterns} codon / {data.nuc_filter.n_patterns} "
-        f"nucleotide patterns)")
-    log(f"[main] fit_gtr {stages['gtr_s']:.2f} s lnL {gtr.loglik:.6f}")
-    log(f"[main] fit_partitioned_mg94 {stages['mg94_s']:.2f} s lnL {mg.loglik:.6f} "
+    check(rc == 0, f"the fel command returned {rc}")
+    order = ["load", "gtr", "mg94", "grid", "alt_nm", "null_nm"]
+    check(sorted(clock.ends) == sorted(order), f"stages seen: {sorted(clock.ends)}")
+    stamps = [t0] + [clock.ends[k] for k in order] + [t_end]
+    stages = {f"{k}_s": b - a for k, a, b in zip(order + ["lrt_json"], stamps, stamps[1:])}
+    stages["total_s"] = t_end - t0
+    md, mg = clock.mg94_args[0], clock.mg94
+    with open(out_json) as fh:
+        result = json.load(fh)
+    fits_json = result["fits"]
+    stages.update({
+        "command": " ".join(["python -m hyphy_tpu_torch"] + argv[:-1] + ["<tmp>"]),
+        "iteration_cap": None if full_fit else {"lbfgs": 3, "nelder_mead": 32},
+        "gtr_lnl": fits_json["Nucleotide GTR"]["Log Likelihood"],
+        "mg94_lnl": fits_json["Global MG94xREV"]["Log Likelihood"],
+        "level_products_launches": launches,
+        "patterns": md.parts[0].codon_filter.n_patterns,
+    })
+    evals = clock.evals
+    for nm in ("alt_nm", "null_nm"):
+        n = clock.n_params[nm]
+        stages[f"{nm}_iterations"] = (len(evals[nm]) - (n + 1)) // 3
+    all_ms = evals["grid"] + evals["alt_nm"] + evals["null_nm"]
+    stages["site_evaluations"] = {k: len(v) for k, v in evals.items()}
+    stages["site_eval_ms"] = {"median": statistics.median(all_ms), "min": min(all_ms),
+                              "max": max(all_ms), "mean": sum(all_ms) / len(all_ms)}
+    filt = md.parts[0].codon_filter
+    stages["table"] = _check_site_table(result, filt.constant_pattern_mask()[filt.duplicate_map])
+
+    log(f"[main] {stages['command']}: {stages['total_s']:.2f} s")
+    log("[main] stages, s: " + ", ".join(f"{k} {stages[f'{k}_s']:.3f}"
+                                         for k in order + ["lrt_json"]))
+    log(f"[main] GTR lnL {stages['gtr_lnl']:.6f}; MG94 lnL {stages['mg94_lnl']:.6f} "
         f"omega {mg.omegas.tolist()}")
     fits = _fits_from_log(opt_log)
     names = ["gtr", "cf3x4", "mg94 stage 1", "mg94 stage 2"]
@@ -323,9 +465,16 @@ def phase_main_path(torch, fasta: str, newick: str, tmp: str, full_fit: bool) ->
                                "iterations": fit["iterations"],
                                "evaluations": fit["evaluations"], "seconds": fit["seconds"]})
         check(math.isfinite(final) and final >= start, f"{name} fit ended below its start")
-    check(math.isfinite(gtr.loglik) and math.isfinite(mg.loglik), "non-finite lnL")
+    log(f"[main] per-site fits of {stages['patterns']} patterns: Nelder-Mead iterations "
+        f"alternative {stages['alt_nm_iterations']}, null {stages['null_nm_iterations']}; "
+        f"batched evaluations {stages['site_evaluations']}; ms per evaluation "
+        f"{ {k: round(v, 3) for k, v in stages['site_eval_ms'].items()} }")
+    log(f"[main] site table: {stages['table']}")
+    check(math.isfinite(stages["gtr_lnl"]) and math.isfinite(stages["mg94_lnl"]),
+          "non-finite lnL")
     check(launches > 0, "the main path launched no level_products kernel")
     log(f"[main] level_products launches: {launches}")
+    stages["data"], stages["mg94_fit"] = md.parts[0], mg.parts[0]
     return stages
 
 
@@ -459,6 +608,228 @@ def phase_parity(torch, aln, newick: str) -> dict:
     return res
 
 
+def _site_args(torch, n_sites, point, n_groups, device):
+    alpha, beta = point
+    f64 = dict(dtype=torch.float64, device=device)
+    return (torch.arange(n_sites, device=device), torch.full((n_sites,), alpha, **f64),
+            torch.full((n_sites, n_groups), beta, **f64))
+
+
+def _host_fit(mgp, data):
+    """The MG94 fit with its model and parameters on the host."""
+    import dataclasses
+
+    from hyphy_tpu_torch.models.codon import MG94xREVPartitionedOmega
+
+    model = MG94xREVPartitionedOmega(
+        data.genetic_code, mgp.corner_freqs, mgp.codon_freqs,
+        nuc_lengths=mgp.model.nuc_lengths.cpu().numpy(), branch_groups=data.branch_groups,
+        n_groups=mgp.model.n_groups, free_lengths=True, device="cpu")
+    return dataclasses.replace(
+        mgp, model=model, params={k: v.detach().cpu() for k, v in mgp.params.items()})
+
+
+def _site_bound(torch, data, mgp, loglik_args, dtype, spectral):
+    """Least time of one batched per-site evaluation on this run's inputs:
+    the larger of its FLOPs over the card's peak for the dtype and its
+    bytes — the [N, nodes, S] CLVs written once and read once, the leaf
+    partials read once — over the memory rate.  FLOPs are what these sites'
+    data need, each branch acting with its own group's factors.  Taylor:
+    (set bits of j_sb + terms) x 2 S^2 per branch-site, plus (terms + the
+    squarings up to the highest bit used) S x S products per site and
+    group; spectral: 4 S^2 per branch-site plus ~9 S^3 per
+    eigendecomposition.  Also returns the ladder bits each level walks (the
+    batch's largest j there)."""
+    import numpy as np
+
+    from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
+    from hyphy_tpu_torch.ops import expm, pruning
+
+    _, a, betas = loglik_args
+    n, n_groups = betas.shape
+    s = mgp.model.n_states
+    n_branches = data.tree.n_branches
+    size = 8 if dtype == torch.float64 else 4
+    schedule = pruning.build_pruning_data(data.tree, "cpu")
+    out = {}
+    if spectral:
+        flops = n * n_branches * 4 * s * s + n * n_groups * 9 * s ** 3
+    else:
+        with torch.no_grad():
+            q_syn, q_non = mgp.model.basis_matrices(mgp.params)
+            m = fill_diagonal_from_rows(a[:, None, None, None] * q_syn
+                                        + betas[:, :, None, None] * q_non).to(dtype)
+            alpha_hat = torch.as_tensor(mgp.alphas, device=m.device).to(dtype)
+            _, m2p, _, j = expm.taylor_action_factors(m, alpha_hat)
+            group = torch.as_tensor(np.where(data.tested_branches, 0, 1), device=m.device)
+            j = j[:, group, torch.arange(n_branches, device=m.device)].long()   # [N, B]
+            depth = m2p.shape[2]
+            set_bits = int(sum(((j >> k) & 1).sum() for k in range(depth)))
+            j_max = j.amax(dim=0).cpu().numpy()
+        terms = expm.taylor_action_terms(dtype)
+        top = min(depth, int(j_max.max()).bit_length())
+        flops = (2 * s * s * (set_bits + n * n_branches * terms)
+                 + n * n_groups * (terms + max(top - 1, 0)) * 2 * s ** 3)
+        out["ladder_bits_per_level"] = [
+            min(depth, int(j_max[b[b < n_branches]].max(initial=0)).bit_length())
+            for b in (lv[2].reshape(-1) for lv in schedule.ulevels)]
+        out["set_bits_per_branch_site"] = set_bits / (n * n_branches)
+    nbytes = n * (2 * (schedule.n_nodes + 1) + data.tree.n_leaves) * s * size
+    name = "float64" if dtype == torch.float64 else "float32"
+    t_ops, t_bytes = flops / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+    out.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops=flops, bytes=nbytes)
+    return out
+
+
+def _event_and_wall_ms(torch, fn, reps: int):
+    """CUDA-event time (first event to last, idle gaps included) and host
+    time of each of ``reps`` calls after a warm-up, and the peak memory."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, walls = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return {"event_ms": events, "wall_ms": walls,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_sites(torch, data, mgp) -> dict:
+    """The per-site objective of phase 4's MG94 fit at points of FEL's SRV
+    start grid: the card against the host on identical inputs (fp64 Taylor,
+    fp64 spectral), fp32 against fp64 Taylor on the card, and the time of
+    one batched evaluation of every pattern per route."""
+    from hyphy_tpu_torch.methods import fel
+    from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
+    from hyphy_tpu_torch.ops import expm
+
+    n_sites = data.codon_filter.n_patterns
+    n_groups = 2 if (~data.tested_branches).any() else 1
+    points = [tuple(float(x) for x in fel._SRV_GRID[i]) for i in SITE_GRID_ROWS]
+    host = _host_fit(mgp, data)
+    n_parity = min(SITE_PARITY_N, n_sites)
+    res = {"patterns": n_sites, "groups": n_groups, "points": points}
+
+    def objective(fit, dtype, spectral):
+        return fel.site_log_likelihood(data, fit, dtype, spectral)
+
+    with torch.no_grad():
+        # fp64 Taylor: the whole objective, factors computed on each side
+        card, cpu = (objective(mgp, torch.float64, False), objective(host, torch.float64, False))
+        diffs = [float((card(*_site_args(torch, n_parity, pt, n_groups, DEVICE)).cpu()
+                        - cpu(*_site_args(torch, n_parity, pt, n_groups, "cpu"))).abs().max())
+                 for pt in points]
+        res["taylor_fp64_card_vs_host"] = max(diffs)
+        log(f"[sites]   Taylor fp64 card vs host per point: {diffs}")
+        # fp64 spectral: the pruning route on identical factors (the card's
+        # eigendecomposition carried to the host), and the whole objective
+        # with each side's own eigh for the record
+        card, cpu = (objective(mgp, torch.float64, True), objective(host, torch.float64, True))
+        factors, original = [], expm.reversible_spectral
+
+        def record(m, pi):
+            factors.append(original(m, pi))
+            return factors[-1]
+
+        route, whole, res["spectral_fp64_by_point"] = [], [], []
+        for pt in points:
+            expm.reversible_spectral = record
+            try:
+                on_card = card(*_site_args(torch, n_parity, pt, n_groups, DEVICE)).cpu()
+                expm.reversible_spectral = lambda m, pi: tuple(x.cpu() for x in factors[-1])
+                same = cpu(*_site_args(torch, n_parity, pt, n_groups, "cpu"))
+            finally:
+                expm.reversible_spectral = original
+            own = cpu(*_site_args(torch, n_parity, pt, n_groups, "cpu"))
+            route.append(float((on_card - same).abs().max()))
+            whole.append(float((on_card - own).abs().max()))
+            res["spectral_fp64_by_point"].append(
+                {"point": pt, "max_abs": route[-1], "own_eigh_max_abs": whole[-1],
+                 "bound": SITE_SPECTRAL_BOUNDS.get(pt, SITE_HOST_BOUND)})
+        res["spectral_fp64_card_vs_host"] = max(route)
+        res["spectral_fp64_card_vs_host_own_eigh"] = max(whole)
+        # fp32 against fp64 Taylor on the card, every pattern
+        f32, f64 = objective(mgp, torch.float32, False), objective(mgp, torch.float64, False)
+        gaps = []
+        for pt in points:
+            args = _site_args(torch, n_sites, pt, n_groups, DEVICE)
+            gaps.append(float((f32(*args).double() - f64(*args)).abs().max()))
+        res["taylor_fp32_vs_fp64"] = max(gaps)
+    log(f"[sites] per-site lnL at SRV grid points {points}, {n_groups} branch group(s):")
+    log(f"[sites]   fp64 Taylor, card vs host, {n_parity} sites: max |d| "
+        f"{res['taylor_fp64_card_vs_host']:.3e} (bound {SITE_HOST_BOUND})")
+    for row in res["spectral_fp64_by_point"]:
+        log(f"[sites]   fp64 spectral route at {row['point']}, card vs host on identical "
+            f"factors: max |d| {row['max_abs']:.3e} (bound {row['bound']}); with each "
+            f"side's own eigh {row['own_eigh_max_abs']:.3e}")
+    log(f"[sites]   fp32 vs fp64 Taylor on the card, {n_sites} sites: max |d| "
+        f"{res['taylor_fp32_vs_fp64']:.3e} (bound {SITE_FP32_BOUND})")
+
+    # one batched evaluation of every pattern, per route
+    pt = points[0]
+    args = _site_args(torch, n_sites, pt, n_groups, DEVICE)
+    res["timing"] = {}
+    small = _site_args(torch, min(SITE_PROFILE_N, n_sites), pt, n_groups, DEVICE)
+    for name, dtype, spectral, reps in (("taylor_fp32", torch.float32, False, 5),
+                                        ("taylor_fp64", torch.float64, False, 3),
+                                        ("spectral_fp64", torch.float64, True, 2)):
+        fn = objective(mgp, dtype, spectral)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            row = _event_and_wall_ms(torch, lambda: fn(*args), reps)
+            profiled = small if spectral else args
+            row["profile"] = prof = profile_ms(
+                torch, lambda: fn(*profiled),
+                os.path.join("chiprun_out", f"profile_site_{name}.txt"))
+            prof["sites"] = profiled[0].shape[0]
+            row.update(_site_bound(torch, data, mgp, args, dtype, spectral))
+        res["timing"][name] = row
+        log(f"[sites] {name}, {n_sites} sites: events {[round(t, 3) for t in row['event_ms']]} "
+            f"ms, wall {[round(t, 3) for t in row['wall_ms']]} ms; bound "
+            f"{row['bound_ms']:.3f} ms ({row['bound_by']}); peak {row['peak_gb']:.2f} GB; "
+            f"profiled on {prof['sites']} sites: wall {prof['wall_ms']:.3f} ms, kernels "
+            f"{prof['device_ms']:.3f} ms in {prof['launches']} launches, idle share "
+            f"{prof['idle_share']:.3f}; top {prof['top'][:3]}; "
+            f"{ {k: row[k] for k in ('ladder_bits_per_level', 'set_bits_per_branch_site') if k in row} }"
+            f" ({time.perf_counter() - t0:.1f} s)")
+    # the eigendecomposition alone, as the spectral route calls it
+    with torch.no_grad():
+        q_syn, q_non = mgp.model.basis_matrices(mgp.params)
+        m = fill_diagonal_from_rows(args[1][:, None, None] * q_syn
+                                    + args[2][:, 0, None, None] * q_non)
+        sym = m * torch.sqrt(mgp.model.frequencies)[:, None] / torch.sqrt(mgp.model.frequencies)
+        sym = 0.5 * (sym + sym.transpose(-1, -2))
+        row = _event_and_wall_ms(torch, lambda: torch.linalg.eigh(sym), 2)
+        head = sym[: SITE_PROFILE_N]
+        row["profile"] = prof = profile_ms(
+            torch, lambda: torch.linalg.eigh(head),
+            os.path.join("chiprun_out", "profile_site_eigh.txt"))
+        prof["sites"] = head.shape[0]
+    res["timing"]["eigh_fp64"] = row
+    log(f"[sites] torch.linalg.eigh on {list(sym.shape)} fp64: events "
+        f"{[round(t, 3) for t in row['event_ms']]} ms, wall "
+        f"{[round(t, 3) for t in row['wall_ms']]} ms; profiled on {prof['sites']}: "
+        f"wall {prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in "
+        f"{prof['launches']} launches, idle share {prof['idle_share']:.3f}; top {prof['top'][:3]}")
+    check(res["taylor_fp64_card_vs_host"] <= SITE_HOST_BOUND,
+          "fp64 Taylor per-site lnL: card disagrees with host")
+    for row in res["spectral_fp64_by_point"]:
+        check(row["max_abs"] <= row["bound"],
+              f"fp64 spectral per-site lnL at {row['point']}: card disagrees with host")
+    check(res["taylor_fp32_vs_fp64"] <= SITE_FP32_BOUND, "fp32 per-site lnL far from fp64")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -475,10 +846,12 @@ def main(argv) -> int:
     record = {"card": phase_card(torch), "build": phase_build()}
     record["kernels"] = phase_kernels(torch)
     with tempfile.TemporaryDirectory() as tmp:
-        aln, newick, fasta = _write_inputs(tmp)
-        record["main_path"] = phase_main_path(torch, fasta, newick, tmp,
+        aln, newick, fasta, tree_path = _write_inputs(tmp)
+        record["main_path"] = phase_main_path(torch, fasta, tree_path, tmp,
                                               "--full-fit" in argv)
+    data, mgp = record["main_path"].pop("data"), record["main_path"].pop("mg94_fit")
     record["parity"] = phase_parity(torch, aln, newick)
+    record["sites"] = phase_sites(torch, data, mgp)
 
     wide = next(r for r in record["kernels"]["shapes"]
                 if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")

@@ -3,10 +3,11 @@
 A second package beside the JAX one, with the same module paths and class
 and function names, so each module's counterpart is found by its path.  It
 imports ``torch``, numpy and scipy, and nothing of ``jax`` or ``hyphy_tpu``:
-the numpy-only modules it needs (``data/``, ``tree/``, ``utils/synth.py``)
-are copies kept here.
+the numpy-only modules it needs (``data/``, ``tree/``, ``utils/synth.py``,
+``io/json_out.py``) are copies kept here.
 
-The one hand-written kernel so far is the pruning level step
+The analysis ported so far is FEL: ``methods.fel.run`` and
+``python -m hyphy_tpu_torch fel`` (``cli.py``).  The one hand-written kernel so far is the pruning level step
 (``ops/level_products.py`` over ``csrc/level_products.cu``); everything else
 is plain PyTorch.  Entry points take ``device=None``, which resolves to
 ``settings.device`` (``"cuda"`` by default) and raises without a card.

@@ -1,0 +1,110 @@
+"""Command-line interface: ``python -m hyphy_tpu_torch <method> --alignment ...``.
+
+Counterpart of ``hyphy_tpu/cli.py`` for the ported methods (FEL so far),
+with the JAX parser's flags; it writes ``<alignment>.<METHOD>.json`` like
+the reference analyses do.  It runs on ``settings.device`` — the card,
+raising without one; there is no device flag, as the JAX CLI has none.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+from hyphy_tpu_torch.config import settings
+from hyphy_tpu_torch.io.json_out import write_json
+
+
+def _bool(v: str) -> bool:
+    return str(v).strip().lower() in ("yes", "true", "1", "on")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m hyphy_tpu_torch",
+        description="Phylogenetic selection analyses on one CUDA card (FEL)",
+    )
+    sub = parser.add_subparsers(dest="method", required=True)
+
+    pw = sub.add_parser(
+        "warmup",
+        help="run a method's whole pipeline with every optimizer capped "
+             "(L-BFGS at 3 iterations, Nelder-Mead at 32), so each code path "
+             "runs once without paying for the fits.  Usage: warmup fel "
+             "--alignment ...",
+    )
+    pw.add_argument("target", help="method to warm up (fel)")
+    pw.add_argument("rest", nargs=argparse.REMAINDER,
+                    help="arguments passed through to the method")
+
+    p = sub.add_parser("fel", help="Fixed Effects Likelihood site selection")
+    p.add_argument("--alignment", required=True, help="in-frame codon alignment (FASTA/NEXUS/PHYLIP)")
+    p.add_argument("--tree", default=None, help="newick tree (file or string; default: tree in the alignment file)")
+    p.add_argument("--code", default="Universal", help="genetic code")
+    p.add_argument("--output", default=None, help="output JSON path")
+    p.add_argument("--branches", default="All")
+    p.add_argument("--srv", default="Yes")
+    p.add_argument("--pvalue", type=float, default=0.1)
+    p.add_argument("--resample", type=int, default=0,
+                   help="parametric-bootstrap replicates for per-site p-values")
+    p.add_argument("--multiple-hits", dest="multiple_hits", default="None",
+                   choices=["None", "Double", "Double+Triple"])
+    p.add_argument("--site-multihit", dest="site_multihit", default="Estimate",
+                   choices=["Estimate", "Global"])
+    p.add_argument("--ci", default="No",
+                   help="profile-likelihood confidence intervals on site dN/dS")
+    return parser
+
+
+def _read_tree_arg(tree):
+    if tree is not None and os.path.exists(tree):
+        with open(tree) as fh:
+            return fh.read().strip()
+    return tree
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.method == "warmup":
+        sub_argv = [args.target] + list(args.rest)
+        # the capped run writes its (meaningless) JSON to a .warmup path so
+        # a real result file is never clobbered
+        if "--output" not in sub_argv:
+            try:
+                aln = sub_argv[sub_argv.index("--alignment") + 1]
+                sub_argv += ["--output", f"{aln}.{args.target.upper()}.warmup.json"]
+            except (ValueError, IndexError):
+                pass
+        t0 = time.time()
+        settings.warmup = True
+        try:
+            rc = main(sub_argv)
+        finally:
+            settings.warmup = False
+        print(f"warmup complete in {time.time() - t0:.1f}s: '{args.target}' ran "
+              f"with capped optimizers on these inputs")
+        return rc
+
+    from hyphy_tpu_torch.methods import fel
+
+    tree = _read_tree_arg(args.tree)
+    t0 = time.time()
+    result = fel.run(args.alignment, args.code, tree, args.branches,
+                     srv=_bool(args.srv), pvalue=args.pvalue,
+                     resample=args.resample,
+                     multiple_hits=args.multiple_hits,
+                     site_multihit=args.site_multihit,
+                     ci=_bool(args.ci))
+    out_path = args.output or f"{args.alignment}.{args.method.upper()}.json"
+    result.json.setdefault("timers", {})["Total time"] = {
+        "timer": round(time.time() - t0, 2), "order": 0,
+    }
+    write_json(result.json, out_path)
+    print(f"Analysis complete. Results written to {out_path}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -37,8 +37,9 @@ class Settings:
     # max optimizer iterations scaled by #parameters
     # (reference: MAXIMUM_ITERATIONS_PER_VARIABLE)
     max_iterations_per_variable: int = _env("MAX_ITER_PER_VAR", 2000, int)
-    # warmup mode: cap every optimizer at 3 iterations, so a whole pipeline
-    # runs each of its code paths once without paying for the fits
+    # warmup mode: cap L-BFGS at 3 iterations and Nelder-Mead at 32, so a
+    # whole pipeline runs each of its code paths once without paying for
+    # the fits
     warmup: bool = _env("WARMUP", False, bool)
     # where tensors live: "cuda" unless the caller asks for "cpu"
     device: str = "cuda"

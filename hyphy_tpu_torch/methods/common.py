@@ -2,7 +2,9 @@
 
 Counterpart of ``hyphy_tpu/methods/common.py`` (the reference's
 ``SelectionAnalyses/modules/shared-load-file.bf``: load_file, doGTR,
-doPartitionedMG).  The multi-partition loaders and fits are not ported yet.
+doPartitionedMG).  The multi-partition wrappers are ported for one
+partition, where the JAX package delegates to the one-partition functions;
+an alignment with CHARSET partitions raises ``NotImplementedError``.
 
 Stage placement: the JAX package fits the GTR stage on the host CPU unless
 the tree has more than 250 leaves (a choice made for a TPU behind a
@@ -13,6 +15,9 @@ re-decided from the card's numbers in PERF.md.
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,6 +33,22 @@ from hyphy_tpu_torch.models import frequencies as freq_mod
 from hyphy_tpu_torch.models.codon import MG94xREVPartitionedOmega
 from hyphy_tpu_torch.models.dna import GTR
 from hyphy_tpu_torch.tree.topology import Tree
+
+_MULTI_PARTITION = (
+    "multi-partition (CHARSET) analyses are not ported yet (ROADMAP.md, "
+    "'Left by the FEL slice', item 4)"
+)
+
+
+def progress(method: str, msg: str) -> None:
+    """Uniform stderr progress line, one per pipeline stage (reference:
+    ``io.ReportProgressMessageMD``).  Silence with HYPHY_TPU_PROGRESS=0."""
+    if os.environ.get("HYPHY_TPU_PROGRESS", "1") != "0":
+        print(f"[{method} {time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
+
+
+def chi2_sf(x: float, df: float) -> float:
+    return float(_chi2.sf(max(x, 0.0), df))
 
 
 @dataclasses.dataclass
@@ -48,6 +69,19 @@ class LoadedData:
     @property
     def n_sequences(self) -> int:
         return self.nuc_filter.n_sequences
+
+    @property
+    def n_sites(self) -> int:
+        return (
+            self.codon_filter.n_units
+            if self.codon_filter is not None
+            else self.nuc_filter.n_units
+        )
+
+    @property
+    def sample_size(self) -> int:
+        """sites x sequences (the reference's AIC-c sample size)."""
+        return self.n_sites * self.n_sequences
 
 
 def _branch_selection(tree: Tree, branches: str):
@@ -85,6 +119,60 @@ def load_codon_data(
         genetic_code=gc, tested_branches=tested, branch_groups=groups,
         group_names=group_names, device=device,
     )
+
+
+@dataclasses.dataclass
+class MultiLoadedData:
+    """Partitioned load_file equivalent: one LoadedData per partition, plus
+    whole-alignment filters.  Only the one-partition case is ported."""
+
+    alignment: Alignment
+    genetic_code: GeneticCode
+    parts: List[LoadedData]
+    partition_names: List[str]
+    full_nuc: DataFilter
+    full_codon: Optional[DataFilter]
+
+    @property
+    def n_partitions(self) -> int:
+        return len(self.parts)
+
+    @property
+    def n_sequences(self) -> int:
+        return self.full_nuc.n_sequences
+
+    @property
+    def n_sites(self) -> int:
+        return sum(p.n_sites for p in self.parts)
+
+    @property
+    def sample_size(self) -> int:
+        return self.n_sites * self.n_sequences
+
+
+def load_codon_data_multi(
+    alignment_path: str,
+    genetic_code: str = "Universal",
+    tree_newick: Optional[str] = None,
+    branches: str = "All",
+    device=None,
+) -> MultiLoadedData:
+    """Partition-aware loader; without CHARSETs a single-partition wrapper
+    around :func:`load_codon_data`.  CHARSETs raise NotImplementedError."""
+    single = load_codon_data(alignment_path, genetic_code, tree_newick, branches, device)
+    if single.alignment.charsets:
+        raise NotImplementedError(_MULTI_PARTITION)
+    return MultiLoadedData(
+        alignment=single.alignment, genetic_code=single.genetic_code, parts=[single],
+        partition_names=["default"], full_nuc=single.nuc_filter,
+        full_codon=single.codon_filter,
+    )
+
+
+def _single_partition(md: MultiLoadedData) -> LoadedData:
+    if md.n_partitions != 1:
+        raise NotImplementedError(_MULTI_PARTITION)
+    return md.parts[0]
 
 
 @dataclasses.dataclass
@@ -264,4 +352,58 @@ def kill_zero_branches(
 def lrt(alternative_lnl: float, null_lnl: float, df: int):
     """LRT statistic + chi^2 p-value (estimators.LRT)."""
     stat = 2.0 * (alternative_lnl - null_lnl)
-    return stat, float(_chi2.sf(max(stat, 0.0), df))
+    return stat, chi2_sf(stat, df)
+
+
+@dataclasses.dataclass
+class MultiGTRFit:
+    loglik: float
+    parts: List[GTRFit]
+    n_parameters: int
+
+
+@dataclasses.dataclass
+class MultiMG94Fit:
+    loglik: float
+    parts: List[MG94Fit]
+    omegas: np.ndarray
+    n_parameters: int
+
+
+def kill_zero_branches_multi(
+    md: MultiLoadedData,
+    gtr: MultiGTRFit,
+    branches: str = "All",
+) -> Tuple[MultiLoadedData, MultiGTRFit]:
+    """Apply the kill-zero-lengths collapse per partition."""
+    new_parts, new_gtrs = [], []
+    for p, g in zip(md.parts, gtr.parts):
+        np_, ng = kill_zero_branches(p, g, branches)
+        new_parts.append(np_)
+        new_gtrs.append(ng)
+    return (
+        dataclasses.replace(md, parts=new_parts),
+        dataclasses.replace(gtr, parts=new_gtrs),
+    )
+
+
+def fit_gtr_multi(md: MultiLoadedData, precision: float = 1e-5) -> MultiGTRFit:
+    """Nucleotide GTR fit over the partitions (one partition: :func:`fit_gtr`)."""
+    g = fit_gtr(_single_partition(md), precision=precision)
+    return MultiGTRFit(loglik=g.loglik, parts=[g], n_parameters=g.n_parameters)
+
+
+def fit_partitioned_mg94_multi(
+    md: MultiLoadedData,
+    gtr: MultiGTRFit,
+    precision: float = 1e-5,
+    frequency_method: str = "CF3x4",
+    refit_lengths: bool = True,
+) -> MultiMG94Fit:
+    """'Global MG94xREV' fit over the partitions (one partition:
+    :func:`fit_partitioned_mg94`)."""
+    f = fit_partitioned_mg94(
+        _single_partition(md), gtr.parts[0], precision=precision,
+        frequency_method=frequency_method, refit_lengths=refit_lengths,
+    )
+    return MultiMG94Fit(loglik=f.loglik, parts=[f], omegas=f.omegas, n_parameters=f.n_parameters)

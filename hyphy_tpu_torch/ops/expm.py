@@ -6,6 +6,9 @@ Counterpart of ``hyphy_tpu/ops/expm.py``, in plain PyTorch (no kernel yet):
     generator and many branch times, from shared powers of ``q`` and a
     shared binary squaring ladder (reference semantics of
     ``_Matrix::Exponentiate``, ``src/core/matrix.cpp:5537``).
+  * :func:`taylor_action_factors` — the same series for a batch of
+    generators (one per site and branch group), as factors that the
+    per-site pruning applies to CLV vectors (the fp32 per-site route).
   * :func:`reversible_spectral` / :func:`spectral_propagators` — for a
     reversible ``Q`` with stationary ``pi``, one symmetric eigendecomposition
     (``torch.linalg.eigh``) gives ``P(t)`` for every branch as one matmul.
@@ -99,6 +102,57 @@ def shared_taylor_propagators(
         p = torch.where(bit[:, None, None], pnew, p)
         mk = mk @ mk
     return row_renormalize(_clip_negative(p))
+
+
+def taylor_action_factors(q: torch.Tensor, t: torch.Tensor, max_squarings: int = 12):
+    """Factors for applying ``expm(q t_b)`` to VECTORS without ever
+    materializing the per-branch matrices, for a batch of generators.
+
+    ``q`` is ``[..., S, S]`` (e.g. ``[sites, groups, S, S]``), ``t`` the
+    ``[B]`` per-branch times shared by every generator.  Returns
+    ``(qn [..., S, S], m2p [..., L, S, S], r [..., B], j [..., B] int32)``
+    with ``P(t_b) = Taylor(r_b qn) @ prod_k (m2p[k])^{bit_k(j_b)}`` (all
+    commute: one generator); ``m2p[k] = expm(qn)^(2^k)``.  Applied to a
+    vector v: ladder steps ``v <- m2p[k] v`` where bit k of ``j_b`` is set,
+    then Horner ``acc <- v + (r_b / k) qn acc``.
+
+    The Horner radius is 1 (``r in [0, 1)``): at radius 1 the fp32 series
+    tail closes at 12 terms; the ladder depth 12 covers ``||Q t||`` up to
+    ~4096, beyond which ``t_eff`` saturates.  Per generator: ``m = ceil(log2
+    (max row-sum |q|))``, ``qn = q 2^-m``, ``t_eff = min(t 2^m, 2^12 -
+    0.01)``.
+    """
+    dtype = q.dtype
+    s_dim = q.shape[-1]
+    norm = torch.clamp_min(torch.amax(torch.sum(torch.abs(q), dim=-1), dim=-1), 1e-30)
+    m = torch.ceil(torch.log2(norm))                      # [...]
+    qn = q * torch.exp2(-m).to(dtype)[..., None, None]
+    t_eff = t * torch.exp2(m).to(dtype)[..., None]        # [..., B]
+    t_eff = torch.clamp_max(t_eff, 2.0 ** max_squarings - 0.01)
+    j_int = torch.floor(t_eff)
+    j = j_int.to(torch.int32)
+    r = t_eff - j_int
+
+    # expm(qn) via the Taylor series at argument 1
+    terms = taylor_action_terms(dtype)
+    ks = torch.arange(1, terms + 1, dtype=dtype, device=q.device)
+    coef1 = torch.cumprod(1.0 / ks, dim=0)
+    pk = torch.eye(s_dim, dtype=dtype, device=q.device).expand(q.shape)
+    m1 = pk
+    for k in range(terms):
+        pk = pk @ qn
+        m1 = m1 + coef1[k] * pk
+    m2p = [m1]
+    for _ in range(max_squarings - 1):
+        m2p.append(m2p[-1] @ m2p[-1])
+    return qn, torch.stack(m2p, dim=-3), r, j
+
+
+def taylor_action_terms(dtype) -> int:
+    """The Taylor term count :func:`taylor_action_factors` uses for
+    ``dtype``.  Tail bound at the radius-1 Horner argument: 1/(K+1)! * e —
+    4e-10 at K=12 (under fp32 eps), 8e-18 at K=19 (under fp64 eps)."""
+    return 19 if dtype == torch.float64 else 12
 
 
 # ---------------------------------------------------------------------------

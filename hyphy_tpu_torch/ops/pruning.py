@@ -3,14 +3,28 @@
 Counterpart of the gene path of ``hyphy_tpu/ops/pruning.py``: the exact-
 width unrolled variant (``_site_log_likelihoods_unrolled``), with every
 level's sibling product going through the K1 kernel
-(:func:`hyphy_tpu_torch.ops.level_products.level_products`).  The padded
-``lax.scan`` variant (``schedule_pad``) and the per-site routes are not
-ported yet.
+(:func:`hyphy_tpu_torch.ops.level_products.level_products`); and the two
+per-site routes FEL fits sites with, ``single_site_log_likelihood_taylor``
+and ``single_site_log_likelihood_spectral``, batched over sites, on the
+same schedule.  The padded ``lax.scan`` variant (``schedule_pad``) and the
+mixture modes are not ported yet.
 
 Numerics kept from the reference, which make fp32 usable on deep trees:
 the identity propagator at the scratch index, max-renormalisation per
 (node, pattern) with ``mx > 0 ? mx : 1``, the fp64 log-scale accumulator,
 and the ``finfo.tiny`` clamp at the root.
+
+Wide nodes.  The reference multiplies all of a node's child messages before
+it renormalises, so a node with hundreds of children underflows — in fp64
+as in fp32 — and every site's lnL collapses to ``log(tiny)``.  Collapsing
+zero-length branches makes such nodes of a tree whose internal branches fit
+to zero (a star phylogeny: FEL's uncapped fits on the 1000-taxon bench
+workload leave a root of ~1000 children).  Here a node of more than
+``_CHUNK`` children multiplies them ``_CHUNK`` at a time, as the reference
+does, and combines the chunk products pairwise, renormalising after every
+step (:func:`_chunked_product`), as HyPhy scales its partial products.
+Nodes of at most ``_CHUNK`` children — every node of a binary tree — keep
+the reference's arithmetic exactly.
 
 Buffer design.  The JAX package writes each level into one CLV buffer with
 ``dynamic_update_slice``, which is functional there.  In torch, writing
@@ -35,6 +49,9 @@ from hyphy_tpu_torch.tree.topology import Tree
 
 # source id of the all-ones scratch row gathered by padded child slots
 _SCRATCH = -1
+# children multiplied before a renormalisation; wider nodes are padded to a
+# multiple of it
+_CHUNK = 4
 
 
 class LevelPlan(NamedTuple):
@@ -47,6 +64,7 @@ class LevelPlan(NamedTuple):
     pieces: List[Tuple[int, torch.Tensor]]
     perm: "torch.Tensor | None"
     child_branch: torch.Tensor   # [W, K] int64 propagator row per child
+    child_storage: torch.Tensor  # [W, K] int64 storage slot per child
 
 
 class PruningData(NamedTuple):
@@ -56,35 +74,55 @@ class PruningData(NamedTuple):
     n_leaves: int
     # exact-width schedule as in the JAX package: per level
     # (storage_offset, child_storage [W,K], child_branch [W,K]), with
-    # internal-node CLVs stored level-contiguously after the leaves
+    # internal-node CLVs stored level-contiguously after the leaves; a level
+    # whose padding would more than double its child slots is split into
+    # arity classes (see :func:`_arity_groups`)
     ulevels: tuple
     plans: Tuple[LevelPlan, ...]   # the same schedule as per-level gathers
 
 
+def _arity_groups(tree: Tree, lv: np.ndarray) -> List[np.ndarray]:
+    """One level's nodes as K1 launches.  The JAX package pads every node to
+    the tree's largest arity; here a level is padded to its own largest
+    arity, and when that would more than double its child slots — a
+    polytomy of hundreds of leaves beside cherries, as collapsing zero-length
+    branches makes of a tree whose internal branches fit to zero — the
+    level is split into classes of arity ``ceil(log2 K)``, each padded
+    within a factor of two.  Padding slots multiply by exact ones, so the
+    split changes no value; it bounds the ``[W, K, patterns, S]`` gather."""
+    ks = np.array([len(tree.children[nd]) for nd in lv])
+    if len(lv) * ks.max() <= 2 * ks.sum():
+        return [lv]
+    cls = np.ceil(np.log2(ks)).astype(np.int64)
+    return [lv[cls == c] for c in np.unique(cls)]
+
+
 def build_pruning_data(tree: Tree, device) -> PruningData:
     n_nodes, n_leaves = tree.n_nodes, tree.n_leaves
-    arity = max(len(tree.children[nd]) for nd in range(n_leaves, n_nodes))
     storage = np.full(n_nodes + 1, n_nodes, dtype=np.int64)
     storage[:n_leaves] = np.arange(n_leaves)
-    # storage slot -> (source, row): leaves are source 0, level l is l + 1
+    # storage slot -> (source, row): leaves are source 0, launch l is l + 1
     source_of = np.full(n_nodes + 1, _SCRATCH, dtype=np.int64)
     row_of = np.zeros(n_nodes + 1, dtype=np.int64)
     source_of[:n_leaves] = 0
     row_of[:n_leaves] = np.arange(n_leaves)
     next_slot = n_leaves
     levels, plans = [], []
-    for li, lv in enumerate(tree.levels()):
-        w = len(lv)
-        storage[lv] = next_slot + np.arange(w)
+    for group in (g for lv in tree.levels() for g in _arity_groups(tree, lv)):
+        w = len(group)
+        arity = max(len(tree.children[nd]) for nd in group)
+        if arity > _CHUNK:
+            arity = -(-arity // _CHUNK) * _CHUNK
+        storage[group] = next_slot + np.arange(w)
         child_storage = np.full((w, arity), n_nodes, dtype=np.int32)
         child_branch = np.full((w, arity), n_nodes, dtype=np.int32)
-        for slot, nd in enumerate(lv):
+        for slot, nd in enumerate(group):
             for k, c in enumerate(tree.children[nd]):
                 child_storage[slot, k] = storage[c]
                 child_branch[slot, k] = c
         levels.append((next_slot, child_storage, child_branch))
         plans.append(_level_plan(child_storage, child_branch, source_of, row_of, device))
-        source_of[next_slot : next_slot + w] = li + 1
+        source_of[next_slot : next_slot + w] = len(levels)
         row_of[next_slot : next_slot + w] = np.arange(w)
         next_slot += w
     return PruningData(n_nodes, n_leaves, tuple(levels), tuple(plans))
@@ -104,7 +142,8 @@ def _level_plan(child_storage, child_branch, source_of, row_of, device) -> Level
     if not np.array_equal(order, np.arange(len(flat))):
         perm = torch.as_tensor(np.argsort(order, kind="stable"), device=device)
     branch = torch.as_tensor(child_branch.astype(np.int64), device=device)
-    return LevelPlan(pieces, perm, branch)
+    slots = torch.as_tensor(child_storage.astype(np.int64), device=device)
+    return LevelPlan(pieces, perm, branch, slots)
 
 
 def site_log_likelihoods(
@@ -143,9 +182,15 @@ def site_log_likelihoods(
         cc = gathered[0] if len(gathered) == 1 else torch.cat(gathered, dim=0)
         if plan.perm is not None:
             cc = cc.index_select(0, plan.perm)
-        cc = cc.reshape(w, k, patterns, states)
         cp = p_all[plan.child_branch]                      # [W, K, S, S]
-        prod = level_products(cc, cp)                      # [W, patterns, S]
+        if k <= _CHUNK:
+            prod = level_products(cc.reshape(w, k, patterns, states), cp)   # [W, patterns, S]
+        else:
+            # one launch for every chunk of every node, then the chunks combined
+            chunks = level_products(cc.reshape(w * k // _CHUNK, _CHUNK, patterns, states),
+                                    cp.reshape(w * k // _CHUNK, _CHUNK, states, states))
+            prod, logs = _chunked_product(chunks.reshape(w, k // _CHUNK, patterns, states), 1)
+            log_scale = log_scale + torch.sum(logs, dim=0).to(torch.float64)
         mx = torch.amax(prod, dim=-1, keepdim=True)
         mx = torch.where(mx > 0, mx, torch.ones((), dtype=dtype, device=device))
         outputs.append(prod / mx)
@@ -161,3 +206,184 @@ def site_log_likelihoods(
 def total_log_likelihood(site_loglik: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """lnL = sum_patterns freq_p * lnL_p (reference: likefunc.cpp:11123)."""
     return torch.dot(site_loglik, weights)
+
+
+def _chunked_product(terms: torch.Tensor, dim: int):
+    """Product over axis ``dim`` of ``terms`` (chunk products of a wide
+    node's children, states on the last axis) without underflow: every
+    term, then every pairwise product, is divided by its max over states
+    (``mx > 0 ? mx : 1``).  Returns ``(product, logs)``: the true product
+    is ``product * exp(logs)``, ``logs`` the sum of the log maxima, shaped
+    as ``terms`` without ``dim`` (>= 0) and the state axis."""
+    one = torch.ones((), dtype=terms.dtype, device=terms.device)
+    logs = 0.0
+    while True:
+        mx = torch.amax(terms, dim=-1, keepdim=True)
+        mx = torch.where(mx > 0, mx, one)
+        terms = terms / mx
+        logs = logs + torch.sum(torch.log(mx[..., 0]), dim=dim)
+        m = terms.shape[dim]
+        if m == 1:
+            return terms.squeeze(dim), logs
+        if m % 2:
+            terms = torch.cat([terms, torch.ones_like(terms.narrow(dim, 0, 1))], dim=dim)
+        pairs = terms.unflatten(dim, (-1, 2))
+        terms = pairs.select(dim + 1, 0) * pairs.select(dim + 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# per-site routes: one lnL per site, every site with its own generators.
+# Both keep the buffer layout of the JAX package's unrolled variant (leaves,
+# then each level's nodes contiguously, then an all-ones scratch row at
+# ``n_nodes``), batched over a leading site axis, and keep the site lnL and
+# the log-scale in the compute dtype as the reference does.  Derivative-free
+# callers only (FEL's Nelder-Mead): each level writes its slice of the
+# buffer in place.
+
+
+def _site_buffer(leaf_vectors: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """``[N, n_nodes + 1, S]``: the leaves, then room for the internal
+    nodes (every level writes its rows before a later level reads them),
+    then the all-ones scratch row."""
+    n_sites, n_leaves, states = leaf_vectors.shape
+    buf = torch.empty((n_sites, n_nodes + 1, states), dtype=leaf_vectors.dtype,
+                      device=leaf_vectors.device)
+    buf[:, :n_leaves] = leaf_vectors
+    buf[:, n_nodes] = 1.0
+    return buf
+
+
+def _per_branch(values: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """``[..., B]`` per-branch values padded with zeros to ``n_nodes + 1``
+    columns: the root's row and the scratch row take 0."""
+    out = values.new_zeros(values.shape[:-1] + (n_nodes + 1,))
+    out[..., : values.shape[-1]] = values
+    return out
+
+
+def _renormalise(msg, w, karity, log_scale):
+    """Sibling product of one level, max-renormalised per (site, node);
+    nodes wider than ``_CHUNK`` through :func:`_chunked_product`."""
+    n_sites, _, states = msg.shape
+    if karity <= _CHUNK:
+        prod = torch.prod(msg.reshape(n_sites, w, karity, states), dim=2)
+    else:
+        chunks = torch.prod(msg.reshape(n_sites, w, karity // _CHUNK, _CHUNK, states), dim=3)
+        prod, logs = _chunked_product(chunks, 2)
+        log_scale = log_scale + torch.sum(logs, dim=1)
+    mx = torch.amax(prod, dim=-1, keepdim=True)
+    mx = torch.where(mx > 0, mx, torch.ones((), dtype=mx.dtype, device=mx.device))
+    return prod / mx, log_scale + torch.sum(torch.log(mx[..., 0]), dim=1)
+
+
+def _root_log_likelihood(buf, n_nodes, root_freqs, log_scale):
+    dtype = buf.dtype
+    root_like = buf[:, n_nodes - 1] @ root_freqs.to(dtype)
+    tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=buf.device)
+    return torch.log(torch.maximum(root_like, tiny)) + log_scale
+
+
+def single_site_log_likelihood_taylor(
+    qn: torch.Tensor,              # [N, G, S, S] normalized generators per site, group
+    m2p: torch.Tensor,             # [N, G, L, S, S] squaring-ladder matrices
+    r: torch.Tensor,               # [N, n_branches] fractional Taylor times
+    j: torch.Tensor,               # [N, n_branches] int ladder exponents
+    group_of_branch: torch.Tensor, # [n_branches] int in [0, G)
+    n_terms: int,
+    leaf_vectors: torch.Tensor,    # [N, n_leaves, S] the sites' leaf partials
+    root_freqs: torch.Tensor,
+    data: PruningData,
+) -> torch.Tensor:
+    """Per-site lnL ``[N]`` with each branch's propagator applied as a
+    VECTOR action from :func:`ops.expm.taylor_action_factors` (the JAX
+    package's select mode): ladder steps ``v <- m2p[g,k] v`` by the bits of
+    ``j_b``, then the Horner recurrence ``acc <- v + (r_b/k) qn_g acc``.
+    Each branch group's action runs on every child of a level and the result
+    is selected per branch, as in the reference.
+
+    The ladder walks as many bits as the largest ``j`` of the level's
+    branches over the whole batch sets, the trip count of the reference's
+    ``while_loop`` under ``vmap``: the extra steps are no-ops for the sites
+    whose bits are 0.  The per-branch maxima reach the host once per call.
+    """
+    n_nodes = data.n_nodes
+    n_sites, _, states = leaf_vectors.shape
+    n_groups, n_ladder = m2p.shape[1], m2p.shape[2]
+    r_all = _per_branch(r.to(leaf_vectors.dtype), n_nodes)            # [N, n_nodes + 1]
+    j_all = _per_branch(j.to(torch.int64), n_nodes)
+    g_all = _per_branch(group_of_branch.to(torch.int64), n_nodes)     # [n_nodes + 1]
+    j_max = j_all.amax(dim=0).cpu().numpy()
+    qn_t, m2p_t = qn.transpose(-1, -2), m2p.transpose(-1, -2)
+
+    def action(v, rb, jb, bits, g):
+        for k in range(bits):
+            bit = ((jb >> k) & 1).to(torch.bool)
+            v = torch.where(bit[..., None], torch.bmm(v, m2p_t[:, g, k]), v)
+        acc = v
+        for k in range(n_terms, 0, -1):
+            acc = v + (rb / k)[..., None] * torch.bmm(acc, qn_t[:, g])
+        return acc
+
+    buf = _site_buffer(leaf_vectors, n_nodes)
+    log_scale = torch.zeros((n_sites,), dtype=buf.dtype, device=buf.device)
+    for (offset, _, child_branch), plan in zip(data.ulevels, data.plans):
+        w, karity = plan.child_storage.shape
+        flat_b = plan.child_branch.reshape(-1)
+        v = buf[:, plan.child_storage.reshape(-1)]                     # [N, F, S]
+        rb, jb = r_all[:, flat_b], j_all[:, flat_b]
+        bits = min(n_ladder, int(j_max[child_branch.reshape(-1)].max()).bit_length())
+        msg = action(v, rb, jb, bits, 0)
+        for g in range(1, n_groups):
+            msg = torch.where((g_all[flat_b] == g)[:, None], action(v, rb, jb, bits, g), msg)
+        msg = torch.clamp_min(msg, 0.0)
+        prod, log_scale = _renormalise(msg, w, karity, log_scale)
+        buf[:, offset : offset + w] = prod
+    return _root_log_likelihood(buf, n_nodes, root_freqs, log_scale)
+
+
+def single_site_log_likelihood_spectral(
+    left: torch.Tensor,            # [N, G, S, S] spectral factors per site, group
+    lam: torch.Tensor,             # [N, G, S]
+    right: torch.Tensor,           # [N, G, S, S]
+    times: torch.Tensor,           # [n_branches] per-branch expm times
+    group_of_branch: torch.Tensor, # [n_branches] int in [0, G)
+    leaf_vectors: torch.Tensor,    # [N, n_leaves, S]
+    root_freqs: torch.Tensor,
+    data: PruningData,
+) -> torch.Tensor:
+    """Per-site lnL ``[N]`` when branch ``b`` of site ``n`` has the
+    propagator ``left[n,g] diag(e^{lam[n,g] t_b}) right[n,g]`` with ``g`` its
+    group: the spectral factors act on CLV vectors (3 x S^2 flops per
+    branch) instead of materializing P_b.
+
+    The reference takes either one factor set (G = 1) or per-branch copies
+    ``left[group_of_branch]``; batched over sites the copies would be
+    ``[N, branches, S, S]`` (122 GB at 1000 taxa x 2048 sites in fp64), so
+    here each group's action runs on every child and the result is selected
+    per branch — the same arithmetic per node.  Padded children gather the
+    all-ones row at time 0.
+    """
+    n_nodes = data.n_nodes
+    n_sites = leaf_vectors.shape[0]
+    n_groups = left.shape[1]
+    t_all = _per_branch(times.to(leaf_vectors.dtype), n_nodes)           # [n_nodes + 1]
+    g_all = _per_branch(group_of_branch.to(torch.int64), n_nodes)
+    left_t, right_t = left.transpose(-1, -2), right.transpose(-1, -2)
+
+    def action(cc, tb, g):
+        el = torch.exp(lam[:, g, None, :] * tb[None, :, None])         # [N, F, S]
+        return torch.bmm(torch.bmm(cc, right_t[:, g]) * el, left_t[:, g])
+
+    buf = _site_buffer(leaf_vectors, n_nodes)
+    log_scale = torch.zeros((n_sites,), dtype=buf.dtype, device=buf.device)
+    for (offset, _, _), plan in zip(data.ulevels, data.plans):
+        w, karity = plan.child_storage.shape
+        flat_b = plan.child_branch.reshape(-1)
+        cc = buf[:, plan.child_storage.reshape(-1)]                    # [N, F, S]
+        tb = t_all[flat_b]
+        msg = action(cc, tb, 0)
+        for g in range(1, n_groups):
+            msg = torch.where((g_all[flat_b] == g)[:, None], action(cc, tb, g), msg)
+        prod, log_scale = _renormalise(msg, w, karity, log_scale)
+        buf[:, offset : offset + w] = prod
+    return _root_log_likelihood(buf, n_nodes, root_freqs, log_scale)

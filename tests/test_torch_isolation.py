@@ -47,10 +47,12 @@ def test_sources_reference_neither_jax_nor_the_jax_package():
     assert not offenders, "\n".join(offenders)
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from hyphy_tpu_torch import cli
     from hyphy_tpu_torch.config import settings
     from hyphy_tpu_torch.data.filter import DataFilter
     from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.methods import fel
     from hyphy_tpu_torch.models.dna import GTR
     from hyphy_tpu_torch.optimize.core import maximize
     from hyphy_tpu_torch.tree.topology import Tree
@@ -68,6 +70,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         GTR(np.full(4, 0.25))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         maximize(lambda p: -p["x"] ** 2, {}, {})
+    fasta = tmp_path / "a.fasta"
+    fasta.write_text("".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
+    newick = random_tree_newick(4, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fel.run(str(fasta), tree=newick)
+    out = tmp_path / "a.json"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["fel", "--alignment", str(fasta), "--tree", newick, "--output", str(out)])
+    assert not out.exists()
     # asking for the CPU is the only way onto it
     lf = LikelihoodFunction([Partition(filt, tree, model)], device="cpu")
     assert lf.device.type == "cpu" and lf.dtype == torch.float64

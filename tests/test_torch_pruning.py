@@ -99,3 +99,51 @@ def test_gradient_wrt_transition_matrices(problem):
         problem["tdata"])
     tpruning.total_log_likelihood(sll, torch.tensor(w)).backward()
     np.testing.assert_allclose(p.grad.numpy(), ref, rtol=1e-10, atol=1e-12)
+
+
+# a nine-leaf polytomy beside three cherries under a five-way root: the port
+# splits the first level into arity classes (the JAX package pads all four
+# nodes to nine children)
+WIDE = ("((t0:0.1,t1:0.2,t2:0.05,t3:0.1,t4:0.02,t5:0.3,t6:0.1,t7:0.05,t8:0.2):0.05,"
+        "(t9:0.1,t10:0.2):0.1,(t11:0.05,t12:0.1):0.2,(t13:0.3,t14:0.01):0.1,t15:0.2)")
+
+
+def test_wide_level_is_split_and_matches_jax():
+    aln = synthetic_codon_alignment(16, N_CODONS, seed=SEED)
+    filt = JDataFilter.from_alignment(aln, "codon")
+    tree = Tree.from_newick(WIDE, leaf_order=filt.names)
+    tdata = tpruning.build_pruning_data(tree, "cpu")
+    assert [cs.shape for _, cs, _ in tdata.ulevels] == [(3, 2), (1, 12), (1, 8)]
+    assert [off for off, _, _ in tdata.ulevels] == [16, 19, 20]
+    rng = np.random.default_rng(9)
+    s = filt.n_states
+    p = rng.uniform(0.0, 1.0, size=(tree.n_branches, s, s)) + 20.0 * np.eye(s)
+    pr = dict(p=p / p.sum(-1, keepdims=True), leaves=filt.leaf_partials().astype(np.float64),
+              freqs=rng.dirichlet(np.ones(s)), tdata=tdata,
+              jdata=jpruning.build_pruning_data(JTree.from_newick(WIDE, leaf_order=filt.names)))
+    np.testing.assert_allclose(_torch_sites(pr, torch.float64), _jax_sites(pr, jnp.float64),
+                               rtol=1e-10)
+
+
+def test_star_tree_does_not_underflow():
+    """A 200-leaf star: the reference multiplies all 200 child messages
+    before it renormalises, which underflows fp32 (sites at log(tiny)); the
+    port multiplies them four at a time and combines the chunks with
+    renormalisation, so fp32 stays near fp64, and fp64 (in range in both
+    packages here) matches the reference."""
+    n = 200
+    aln = synthetic_codon_alignment(n, N_CODONS, seed=SEED)
+    filt = JDataFilter.from_alignment(aln, "codon")
+    newick = "(" + ",".join(f"t{i}:0.1" for i in range(n)) + ")"
+    tree = Tree.from_newick(newick, leaf_order=filt.names)
+    rng = np.random.default_rng(4)
+    s = filt.n_states
+    p = rng.uniform(0.0, 1.0, size=(tree.n_branches, s, s)) + 20.0 * np.eye(s)
+    pr = dict(p=p / p.sum(-1, keepdims=True), leaves=filt.leaf_partials().astype(np.float64),
+              freqs=rng.dirichlet(np.ones(s)), tdata=tpruning.build_pruning_data(tree, "cpu"),
+              jdata=jpruning.build_pruning_data(JTree.from_newick(newick, leaf_order=filt.names)))
+    ours64 = _torch_sites(pr, torch.float64)
+    np.testing.assert_allclose(ours64, _jax_sites(pr, jnp.float64), rtol=1e-10)
+    ref32 = _jax_sites(pr, jnp.float32)
+    assert (ref32 < np.log(np.finfo(np.float32).tiny) + 1).mean() > 0.5
+    np.testing.assert_allclose(_torch_sites(pr, torch.float32), ours64, atol=1e-2, rtol=0)
