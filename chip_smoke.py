@@ -31,9 +31,23 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      the host on identical inputs, fp32 against fp64 Taylor on every
      pattern; then one batched evaluation of all 2048 patterns per route
      and the batched fp64 eigendecomposition alone, timed by CUDA events,
-     the host clock and the profiler, beside their bounds.
+     the host clock and the profiler, beside their bounds;
+  7. FEL with CHARSET partitions and multiple hits at full width: phase
+     4's alignment written as a NEXUS of 4 CHARSETs of 512 codons (one
+     TREE each), ``[warmup] fel --multiple-hits Double+Triple
+     --site-multihit Estimate`` through the CLI in-process — joint GTR and
+     joint multi-hit MG94 fits, per-site fits with per-site 2H/3H rates —
+     with seconds per stage, K1 launches per partition, peak memory and ms
+     per batched site evaluation; the JSON checked; then the per-site
+     objective with per-site delta/psi, card against host in fp64 Taylor;
+  8. ``warmup fel --ci Yes --resample 10`` on 1000 taxa x 128 codons
+     (codons cut so that the profile's ~60 batched fits and the bootstrap's
+     host sampling fit the run; capped under ``--full-fit`` too): seconds
+     of the CI and of the bootstrap apart, LB <= MLE <= UB, bootstrap p in
+     multiples of 1/11.
 
-It imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
+K1's ``launches`` on the kernels line sum phases 4, 7 and 8.  It imports
+nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
 and ``{"ok": true, "device": {...}}``; a longer record goes to
 ``chiprun_out/chip_smoke.json``.  Without CUDA it exits with 1 and prints
@@ -107,6 +121,12 @@ SITE_FP32_BOUND = 0.03     # |d site lnL|, fp32 vs fp64 Taylor (7.3e-3 on the H1
 # ~150 kernels per matrix, so the spectral route and eigh are profiled on
 # this many sites (events and the host clock time all of them)
 SITE_PROFILE_N = 256
+# phase 7: bench.py's alignment as 4 CHARSETs of 512 codons; per-site
+# (alpha, beta, delta, psi) points of the card-vs-host multi-hit check
+N_PARTS, PART_CODONS = 4, 512
+MH_SITE_POINTS = [(1.0, 1.0, 0.05, 0.05), (0.01, 0.1, 1.0, 1.0), (10.0, 50.0, 10.0, 5.0)]
+# phase 8: codons of the CI / bootstrap run, and bootstrap replicates
+CI_CODONS, N_RESAMPLE = 128, 10
 
 
 def log(msg: str) -> None:
@@ -624,7 +644,8 @@ def _host_fit(mgp, data):
     model = MG94xREVPartitionedOmega(
         data.genetic_code, mgp.corner_freqs, mgp.codon_freqs,
         nuc_lengths=mgp.model.nuc_lengths.cpu().numpy(), branch_groups=data.branch_groups,
-        n_groups=mgp.model.n_groups, free_lengths=True, device="cpu")
+        n_groups=mgp.model.n_groups, free_lengths=True,
+        multiple_hits=mgp.model.multiple_hits, device="cpu")
     return dataclasses.replace(
         mgp, model=model, params={k: v.detach().cpu() for k, v in mgp.params.items()})
 
@@ -830,6 +851,338 @@ def phase_sites(torch, data, mgp) -> dict:
     return res
 
 
+class _CallClock:
+    """Phases 7 and 8's instruments, kept out of the package: wraps the
+    named package functions, sums each one's seconds (ended by a
+    synchronize) and counts its calls, keeps each one's last arguments and
+    result; times every batched per-site evaluation handed to the grid
+    search and the Nelder-Mead; and counts K1 launches per partition of the
+    likelihood functions.  ``restore`` puts the package's functions back."""
+
+    def __init__(self, torch, targets):
+        from hyphy_tpu_torch.likelihood import LikelihoodFunction
+        from hyphy_tpu_torch.ops.level_products import level_products
+
+        self.torch = torch
+        self.seconds, self.calls, self.last = {}, {}, {}
+        self.eval_ms = []
+        self.k1_by_partition = {}
+        self._saved = []
+        for module, name, label in targets:
+            self._patch(module, name, self._timed(getattr(module, name), label))
+        partition_logliks = LikelihoodFunction._partition_site_logliks
+
+        def counted(lf, params, i):
+            before = level_products.launches
+            out = partition_logliks(lf, params, i)
+            self.k1_by_partition[i] = (self.k1_by_partition.get(i, 0)
+                                       + level_products.launches - before)
+            return out
+
+        self._patch(LikelihoodFunction, "_partition_site_logliks", counted)
+
+    def _patch(self, owner, name, replacement):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, replacement)
+
+    def _evaluations(self, objective):
+        def wrapped(idx, params):
+            t0 = time.perf_counter()
+            out = objective(idx, params)
+            self.torch.cuda.synchronize()
+            self.eval_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    def _timed(self, fn, label):
+        def wrapped(*args, **kwargs):
+            if label in ("grid", "nelder_mead"):
+                args = (self._evaluations(args[0]),) + args[1:]
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t0
+            self.calls[label] = self.calls.get(label, 0) + 1
+            self.last[label] = (args, out)
+            return out
+        return wrapped
+
+    def restore(self):
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
+
+
+def _run_fel_cli(torch, argv, targets):
+    """``python -m hyphy_tpu_torch`` with ``argv``, in-process, under a
+    :class:`_CallClock`; K1's launch count set to 0 just before and read
+    just after; peak device memory over the run."""
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    clock = _CallClock(torch, targets)
+    torch.cuda.reset_peak_memory_stats()
+    level_products.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        launches = level_products.launches
+        clock.restore()
+    check(rc == 0, f"the fel command returned {rc}")
+    return clock, {"total_s": total, "level_products_launches": launches,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _eval_stats(ms: list) -> dict:
+    import statistics
+
+    return {"count": len(ms), "median": statistics.median(ms), "min": min(ms),
+            "max": max(ms), "mean": sum(ms) / len(ms)}
+
+
+def _joint_vs_one(torch, md, fit, filter_name: str) -> dict:
+    """ms per evaluation (value; value and gradient) of a fit's joint
+    likelihood over the partitions, and of one partition over the same
+    sites (the whole alignment's filter, partition 0's tree and model), at
+    the fit's parameters; K1 launches per value of each."""
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    joint = LikelihoodFunction([Partition(getattr(p, filter_name), p.tree, f.model)
+                                for p, f in zip(md.parts, fit.parts)], device=DEVICE)
+    joint_params = {joint.partition_key(i, k): v
+                    for i, f in enumerate(fit.parts) for k, v in f.params.items()}
+    whole = md.full_nuc if filter_name == "nuc_filter" else md.full_codon
+    one = LikelihoodFunction([Partition(whole, md.parts[0].tree, fit.parts[0].model)],
+                             device=DEVICE)
+    out = {}
+    for name, lf, params in (("joint", joint, joint_params), ("one", one, fit.parts[0].params)):
+        params = {k: v for k, v in params.items() if k in lf.specs}
+
+        def value():
+            with torch.no_grad():
+                return lf.loglik(params)
+
+        def value_and_grad():
+            p = {k: v.detach().requires_grad_() for k, v in params.items()}
+            v = lf.loglik(p)
+            v.backward()
+            return v
+
+        before = level_products.launches
+        value()
+        out[name] = {"patterns": sum(int(p.filter.n_patterns) for p in lf.partitions),
+                     "k1_launches_per_value": level_products.launches - before,
+                     "value_ms": wall_ms(torch, value, 5),
+                     "value_grad_ms": wall_ms(torch, value_and_grad, 3)}
+    return out
+
+
+def _profile_last_fit(torch, clock, name: str) -> dict:
+    """One batched evaluation of the last Nelder-Mead fit's objective, at
+    its start, under the profiler: launches, kernel time, idle share."""
+    args, _ = clock.last["nelder_mead"]
+    objective, start, idx = args[0], args[2], args[3]
+    with torch.no_grad():
+        prof = profile_ms(torch, lambda: objective(idx, start),
+                          os.path.join("chiprun_out", f"profile_{name}.txt"))
+    prof["sites"] = int(idx.shape[0])
+    return prof
+
+
+_BASE_HEADERS = ["alpha", "beta", "alpha=beta", "LRT", "p-value", "Total branch length"]
+
+
+def phase_partitions(torch, aln, newick: str, tmp: str, full_fit: bool) -> dict:
+    """FEL with CHARSET partitions and Double+Triple hits at full width,
+    through the CLI in-process; then the per-site objective with per-site
+    delta/psi, card against host."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import common, fel
+
+    nexus = os.path.join(tmp, "parts.nex")
+    width = 3 * PART_CODONS
+    with open(nexus, "w") as fh:
+        fh.write(f"#NEXUS\nBEGIN DATA;\nDIMENSIONS NTAX={len(aln.names)} "
+                 f"NCHAR={len(aln.sequences[0])};\nFORMAT DATATYPE=DNA;\nMATRIX\n")
+        fh.write("".join(f"{n} {s}\n" for n, s in zip(aln.names, aln.sequences)))
+        fh.write(";\nEND;\nBEGIN ASSUMPTIONS;\n")
+        fh.write("".join(f"CHARSET part{k} = {k * width + 1}-{(k + 1) * width};\n"
+                         for k in range(N_PARTS)))
+        fh.write("END;\nBEGIN TREES;\n")
+        fh.write("".join(f"TREE tree{k} = {newick};\n" for k in range(N_PARTS)))
+        fh.write("END;\n")
+    out_json = os.path.join(tmp, "parts.FEL.json")
+    argv = ["fel", "--alignment", nexus, "--output", out_json,
+            "--multiple-hits", "Double+Triple", "--site-multihit", "Estimate"]
+    if not full_fit:
+        argv = ["warmup"] + argv
+    clock, res = _run_fel_cli(torch, argv, [
+        (common, "load_codon_data_multi", "load"),
+        (common, "fit_gtr_multi", "gtr"),
+        (common, "fit_partitioned_mg94_multi", "mg94"),
+        (fel, "solve_partition", "per_site"),
+        (fel, "grid_best_starts", "grid"),
+        (fel, "vmapped_nelder_mead", "nelder_mead"),
+    ])
+    with open(out_json) as fh:
+        result = json.load(fh)
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["calls"] = dict(clock.calls)
+    res["site_eval_ms"] = _eval_stats(clock.eval_ms)
+    res["k1_launches_by_partition"] = {str(k): v for k, v in sorted(clock.k1_by_partition.items())}
+    md = clock.last["mg94"][0][0]
+    mg = clock.last["mg94"][1]
+    res["gtr_lnl"] = result["fits"]["Nucleotide GTR"]["Log Likelihood"]
+    res["mg94_lnl"] = result["fits"]["Global MG94xREV"]["Log Likelihood"]
+    res["delta"] = float(mg.parts[0].params["delta"])
+    res["psi"] = float(mg.parts[0].params["psi"])
+    res["omega"] = mg.omegas.tolist()
+
+    # the JSON as a user reads it
+    headers = [h[0] for h in result["MLE"]["headers"]]
+    check(headers == _BASE_HEADERS + ["2H rate", "3H rate"], f"FEL headers {headers}")
+    check(result["input"]["partition count"] == N_PARTS
+          and sorted(result["MLE"]["content"]) == [str(k) for k in range(N_PARTS)],
+          "FEL JSON without one block per partition")
+    tables = [np.asarray(result["MLE"]["content"][str(k)], dtype=np.float64)
+              for k in range(N_PARTS)]
+    for k, table in enumerate(tables):
+        check(table.shape == (PART_CODONS, len(headers)),
+              f"partition {k}: site table of shape {table.shape}")
+        check(bool(np.isfinite(table).all()), f"partition {k}: non-finite entries")
+        check(bool(((table[:, 4] >= 0) & (table[:, 4] <= 1)).all()),
+              f"partition {k}: p-values outside [0, 1]")
+        check(bool(((table[:, 6:8] >= 0) & (table[:, 6:8] <= 100)).all()),
+              f"partition {k}: 2H/3H rates outside [0, 100]")
+    check(0.0 <= res["delta"] <= 100.0 and 0.0 <= res["psi"] <= 100.0,
+          "global delta/psi outside [0, 100]")
+    check(math.isfinite(res["gtr_lnl"]) and math.isfinite(res["mg94_lnl"]), "non-finite lnL")
+    check(sorted(clock.k1_by_partition) == list(range(N_PARTS))
+          and all(v > 0 for v in clock.k1_by_partition.values()),
+          f"K1 not launched on every partition: {clock.k1_by_partition}")
+    res["table"] = {"sites": sum(t.shape[0] for t in tables),
+                    "sites_p_le_0.1": int(sum((t[:, 4] <= 0.1).sum() for t in tables)),
+                    "median_2h": float(np.median(np.concatenate([t[:, 6] for t in tables]))),
+                    "median_3h": float(np.median(np.concatenate([t[:, 7] for t in tables])))}
+    # the joint fits' evaluations against one partition over the same sites
+    # (K1 launched here is not counted in the main path's launches above)
+    res["joint_vs_one"] = {
+        "gtr": _joint_vs_one(torch, clock.last["gtr"][0][0], clock.last["gtr"][1], "nuc_filter"),
+        "mg94": _joint_vs_one(torch, md, mg, "codon_filter")}
+    for name, row in res["joint_vs_one"].items():
+        log(f"[parts] {name} evaluation, joint over {N_PARTS} partitions vs one partition on "
+            f"the same sites: " + "; ".join(
+                f"{k}: {r['patterns']} patterns, {r['k1_launches_per_value']} K1 launches, "
+                f"value ms {[round(t, 2) for t in r['value_ms']]}, value+gradient ms "
+                f"{[round(t, 2) for t in r['value_grad_ms']]}" for k, r in row.items()))
+    res["profile_eval"] = prof = _profile_last_fit(torch, clock, "parts_site_eval")
+    log(f"[parts] one batched evaluation of the last fit ({prof['sites']} sites) profiled: "
+        f"wall {prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in "
+        f"{prof['launches']} launches, idle share {prof['idle_share']:.3f}; top {prof['top'][:3]}")
+    log(f"[parts] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items()))
+    log(f"[parts] joint GTR lnL {res['gtr_lnl']:.6f}; joint MG94 (Double+Triple) lnL "
+        f"{res['mg94_lnl']:.6f}, omega {res['omega']}, delta {res['delta']:.6f}, "
+        f"psi {res['psi']:.6f}")
+    log(f"[parts] K1 launches {res['level_products_launches']}, by partition "
+        f"{res['k1_launches_by_partition']}; peak {res['peak_gb']:.2f} GB; batched site "
+        f"evaluations of {PART_CODONS} patterns: "
+        f"{ {k: round(v, 3) for k, v in res['site_eval_ms'].items()} } ms; "
+        f"calls {res['calls']}; table {res['table']}")
+
+    # per-site objective with per-site delta/psi, fp64 Taylor, card vs host
+    data, mgp = md.parts[0], mg.parts[0]
+    host = _host_fit(mgp, data)
+    n = min(SITE_PARITY_N, data.codon_filter.n_patterns)
+    card = fel.site_log_likelihood(data, mgp, torch.float64, False, per_site_multihit=True)
+    cpu = fel.site_log_likelihood(data, host, torch.float64, False, per_site_multihit=True)
+    diffs = []
+    with torch.no_grad():
+        for point in MH_SITE_POINTS:
+            values = []
+            for fn, device in ((card, DEVICE), (cpu, "cpu")):
+                idx, a, betas = _site_args(torch, n, point[:2], 1, device)
+                rates = [torch.full((n,), x, dtype=torch.float64, device=device)
+                         for x in point[2:]]
+                values.append(fn(idx, a, betas, *rates).cpu())
+            diffs.append(float((values[0] - values[1]).abs().max()))
+    res["multihit_site_card_vs_host"] = dict(zip(map(str, MH_SITE_POINTS), diffs))
+    log(f"[parts] per-site lnL with per-site delta/psi, fp64 Taylor, card vs host, {n} "
+        f"sites, at (alpha, beta, delta, psi) {MH_SITE_POINTS}: max |d| {diffs} "
+        f"(bound {SITE_HOST_BOUND})")
+    check(max(diffs) <= SITE_HOST_BOUND, "per-site multi-hit lnL: card disagrees with host")
+    return res
+
+
+def phase_options(torch, tmp: str) -> dict:
+    """``warmup fel --ci Yes --resample 10`` on 1000 taxa x 128 codons
+    through the CLI in-process: the CI's and the bootstrap's seconds apart,
+    and the columns checked.  Capped under ``--full-fit`` too: the profile's
+    61 Nelder-Mead fits at their uncapped 80 iterations would take 2.5x the
+    capped CI, more than the run has."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import fel
+    from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
+
+    aln = synthetic_codon_alignment(N_TAXA, CI_CODONS, seed=SEED)
+    fasta = os.path.join(tmp, "ci.fasta")
+    with open(fasta, "w") as fh:
+        fh.write("".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
+    tree_path = os.path.join(tmp, "ci.nwk")
+    with open(tree_path, "w") as fh:
+        fh.write(random_tree_newick(N_TAXA, seed=SEED))
+    out_json = os.path.join(tmp, "ci.FEL.json")
+    argv = ["warmup", "fel", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--ci", "Yes", "--resample", str(N_RESAMPLE)]
+    clock, res = _run_fel_cli(torch, argv, [
+        (fel, "solve_partition", "per_site"),
+        (fel, "_profile_ci", "ci"),
+        (fel, "_simulate_null_states", "bootstrap_simulation"),
+        (fel, "_bootstrap_pvalues", "bootstrap_refits"),
+        (fel, "vmapped_nelder_mead", "nelder_mead"),
+    ])
+    with open(out_json) as fh:
+        result = json.load(fh)
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["calls"] = dict(clock.calls)
+    res["site_eval_ms"] = _eval_stats(clock.eval_ms)
+    headers = [h[0] for h in result["MLE"]["headers"]]
+    check(headers == _BASE_HEADERS + ["dN/dS LB", "dN/dS MLE", "dN/dS UB", "p-asmp"],
+          f"FEL headers {headers}")
+    table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    check(table.shape == (CI_CODONS, len(headers)), f"site table of shape {table.shape}")
+    check(bool(np.isfinite(table).all()), "non-finite entries in the site table")
+    lb, mle, ub = table[:, 6], table[:, 7], table[:, 8]
+    check(bool(((lb <= mle) & (mle <= ub)).all()), "CI without LB <= MLE <= UB")
+    p, step = table[:, 4], 1.0 / (N_RESAMPLE + 1)
+    check(bool(np.allclose(np.round(p / step) * step, p, rtol=0, atol=1e-12)
+               and (p >= step - 1e-12).all() and (p <= 1.0).all()),
+          f"bootstrap p-values not multiples of 1/{N_RESAMPLE + 1} in [1/{N_RESAMPLE + 1}, 1]")
+    check(bool(((table[:, 9] >= 0) & (table[:, 9] <= 1)).all()), "p-asmp outside [0, 1]")
+    res["table"] = {"sites": int(table.shape[0]), "bootstrap_p_le_0.1": int((p <= 0.1).sum()),
+                    "asymptotic_p_le_0.1": int((table[:, 9] <= 0.1).sum()),
+                    "ci_width_median": float(np.median(ub - lb)),
+                    "ub_at_cap": int((ub >= 10000.0).sum()), "lb_at_zero": int((lb == 0).sum())}
+    res["profile_eval"] = prof = _profile_last_fit(torch, clock, "ci_site_eval")
+    log(f"[options] one batched evaluation of the last CI fit ({prof['sites']} sites) profiled: "
+        f"wall {prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in "
+        f"{prof['launches']} launches, idle share {prof['idle_share']:.3f}; top {prof['top'][:3]}")
+    log(f"[options] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; calls {res['calls']}")
+    log(f"[options] K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
+        f"batched site evaluations: "
+        f"{ {k: round(v, 3) for k, v in res['site_eval_ms'].items()} } ms; table {res['table']}")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -845,13 +1198,18 @@ def main(argv) -> int:
     os.makedirs("chiprun_out", exist_ok=True)   # profiles and the record
     record = {"card": phase_card(torch), "build": phase_build()}
     record["kernels"] = phase_kernels(torch)
+    full_fit = "--full-fit" in argv
     with tempfile.TemporaryDirectory() as tmp:
         aln, newick, fasta, tree_path = _write_inputs(tmp)
-        record["main_path"] = phase_main_path(torch, fasta, tree_path, tmp,
-                                              "--full-fit" in argv)
-    data, mgp = record["main_path"].pop("data"), record["main_path"].pop("mg94_fit")
-    record["parity"] = phase_parity(torch, aln, newick)
-    record["sites"] = phase_sites(torch, data, mgp)
+        record["main_path"] = phase_main_path(torch, fasta, tree_path, tmp, full_fit)
+        data, mgp = record["main_path"].pop("data"), record["main_path"].pop("mg94_fit")
+        record["parity"] = phase_parity(torch, aln, newick)
+        record["sites"] = phase_sites(torch, data, mgp)
+        del data, mgp
+        torch.cuda.empty_cache()
+        record["partitions"] = phase_partitions(torch, aln, newick, tmp, full_fit)
+        torch.cuda.empty_cache()
+        record["options"] = phase_options(torch, tmp)
 
     wide = next(r for r in record["kernels"]["shapes"]
                 if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")
@@ -864,7 +1222,8 @@ def main(argv) -> int:
     log(f"[kernel] level_products fp32 per evaluation: phase 3 {per_eval['ms']:.4f} ms, "
         f"inside the profiled evaluation {sum(in_eval):.4f} ms; per level, phase 3 / "
         f"evaluation: {[round(a / b, 3) for a, b in zip(per_eval['per_level_ms'], in_eval)]}")
-    launches = {"level_products": record["main_path"]["level_products_launches"]}
+    launches = {"level_products": sum(record[phase]["level_products_launches"]
+                                      for phase in ("main_path", "partitions", "options"))}
     kernels = [{
         "name": name, "route": "cuda", "status": "ok",
         "source": f"hyphy_tpu_torch/csrc/{name}.cu",

@@ -1,8 +1,7 @@
 """HyPhy-schema JSON result construction.
 
 A copy of the numpy-only ``hyphy_tpu/io/json_out.py`` (the port imports
-nothing of the JAX package), without the multi-partition scaffold
-``analysis_json_parts``, which waits for the multi-partition fits.
+nothing of the JAX package).
 
 The key vocabulary mirrors ``libv3/all-terms.bf`` (``terms.json``
 namespace) so goldens and downstream consumers (e.g. hyphy-vision)
@@ -88,6 +87,56 @@ def analysis_json(
                 "coverage": [list(range(data.n_sites))],
             }
         },
+        "tested": tested_map,
+        "timers": {"Total time": {"timer": int(time.time()), "order": 0}},
+    }
+    if extra:
+        out.update(extra)
+    return out
+
+
+def analysis_json_parts(
+    info: str,
+    version: str,
+    md,                        # common.MultiLoadedData
+    fits: Dict,
+    extra: Optional[Dict] = None,
+) -> Dict:
+    """Multi-partition scaffold: one tested map / tree / coverage block
+    per partition (reference: selection.io json machinery keyed by
+    partition index)."""
+    tested_map = {}
+    trees = {}
+    partitions = {}
+    offset = 0
+    for i, part in enumerate(md.parts):
+        tree = part.tree
+        names = tree.branch_names()
+        tested_map[str(i)] = {
+            names[b]: ("test" if part.tested_branches[b] else "background")
+            for b in range(tree.n_branches)
+        }
+        trees[str(i)] = tree.newick_string
+        partitions[str(i)] = {
+            "name": md.partition_names[i],
+            "coverage": [list(range(offset, offset + part.n_sites))],
+        }
+        offset += part.n_sites
+    out = {
+        "analysis": {
+            "info": info,
+            "version": version,
+            "citation": "hyphy_tpu_torch (PyTorch/CUDA reimplementation of HyPhy analyses)",
+        },
+        "input": {
+            "file name": md.alignment.file_name or "",
+            "number of sequences": md.n_sequences,
+            "number of sites": md.n_sites,
+            "partition count": md.n_partitions,
+            "trees": trees,
+        },
+        "fits": fits,
+        "data partitions": partitions,
         "tested": tested_map,
         "timers": {"Total time": {"timer": int(time.time()), "order": 0}},
     }

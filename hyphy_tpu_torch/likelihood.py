@@ -100,6 +100,15 @@ class LikelihoodFunction:
                 self.specs[key] = spec
             self._key_maps.append(key_map)
 
+    def partition_local_params(self, params: Params, i: int) -> Dict[str, torch.Tensor]:
+        """Partition ``i``'s parameters under its local names (the inverse
+        of the ``pK:`` prefixing)."""
+        return {name: params[key] for name, key in self._key_maps[i].items()}
+
+    def partition_key(self, i: int, name: str) -> str:
+        """The joint-dict key of partition ``i``'s parameter ``name``."""
+        return self._key_maps[i][name]
+
     # -- compute ------------------------------------------------------------
 
     def _partition_site_logliks(self, params: Params, i: int) -> torch.Tensor:

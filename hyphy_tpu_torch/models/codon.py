@@ -1,8 +1,9 @@
 """Codon substitution models: the MG94xREV family.
 
-Counterpart of ``hyphy_tpu/models/codon.py`` (``MG94Base`` and
-``MG94xREVPartitionedOmega`` without multiple hits; the multi-hit classes,
-``MG94xREV`` and ``MG94xREVLocal`` are not ported yet).
+Counterpart of ``hyphy_tpu/models/codon.py``: ``MG94Base`` with the
+multiple-hit basis matrices, and ``MG94xREVPartitionedOmega`` with its
+``multiple_hits`` option.  ``MG94xREVMultiHit``, ``MG94xREVMultiHitGDD``,
+``MG94xREV`` and ``MG94xREVLocal`` are not ported yet.
 
 Q construction (parity-critical, reference ``MG_REV.bf:66-105``): entry
 (x -> y) is nonzero iff codons differ at exactly one nucleotide position,
@@ -101,7 +102,7 @@ class MG94Base(SubstitutionModel):
 
     def propagators_grouped(
         self,
-        params: Params,
+        bases,                         # (Q_syn, Q_nonsyn) [S, S]
         alpha_b: torch.Tensor,         # [B] branch syn rates (the expm time)
         ratio_groups: torch.Tensor,    # [G] beta/alpha per group
         group_of_branch: np.ndarray,   # [B] int in [0, G), concrete
@@ -109,8 +110,10 @@ class MG94Base(SubstitutionModel):
         """P_b = expm(alpha_b * (Q_syn + r_{g(b)} * Q_nonsyn)) — G
         generators shared by all branches.  Branches are partitioned per
         group on the host, so each group's propagators use shared factors
-        instead of per-branch copies."""
-        q_syn, q_non = self.basis_matrices(params)
+        instead of per-branch copies.  The JAX package passes the parameters
+        and builds the single-hit bases here; the bases are passed in so the
+        multi-hit ones take the same route."""
+        q_syn, q_non = bases
         m = fill_diagonal_from_rows(
             q_syn[None] + ratio_groups[:, None, None] * q_non[None]
         )  # [G,S,S]
@@ -140,15 +143,72 @@ class MG94Base(SubstitutionModel):
         perm = np.argsort(np.concatenate(order), kind="stable")
         return torch.cat(parts, dim=0)[torch.as_tensor(perm, device=self.device)]
 
-    def rate_per_branch(self, params: Params, alpha_b, beta_b) -> torch.Tensor:
-        """Branch length in expected substitutions per NUCLEOTIDE site —
-        codon-model branch lengths carry a 1/3 factor (reference:
-        ``model.BranchLengthExpression``, model_functions.bf:696)."""
-        q_syn, q_non = self.basis_matrices(params)
+    def rate_per_branch(self, bases, alpha_b, beta_b) -> torch.Tensor:
+        """Branch length in expected substitutions per NUCLEOTIDE site under
+        the bases ``(Q_syn, Q_nonsyn)`` — codon-model branch lengths carry a
+        1/3 factor (reference: ``model.BranchLengthExpression``,
+        model_functions.bf:696).  The JAX package passes the parameters and
+        builds the single-hit bases here; the bases are passed in so the
+        multi-hit ones take the same rule."""
+        q_syn, q_non = bases
         pi = self.frequencies.to(q_syn.dtype)
         rs = q_syn.sum(-1) @ pi
         rn = q_non.sum(-1) @ pi
         return (alpha_b * rs + beta_b * rn) / 3.0
+
+    # -- multiple instantaneous hits (MG_REV_MH.bf / MG_REV_TRIP.bf) --------
+
+    def _multihit_tables(self):
+        """Index tensors on the model's device (built once) for codon pairs
+        differing at 2 or 3 positions: rate entry = prod(theta per changed
+        position) * prod(target-nuc position frequency) * (alpha|beta) *
+        delta[*psi] (``MG_REV_MH.bf:60-107``)."""
+        if getattr(self, "_mh_tables", None) is not None:
+            return self._mh_tables
+        sense = [int(c) for c in self.gc.sense_codons]
+        trans = self.gc.translation
+        rows = {2: [], 3: []}
+        for a, ca in enumerate(sense):
+            na = (ca // 16, (ca // 4) % 4, ca % 4)
+            for b, cb in enumerate(sense):
+                nb = (cb // 16, (cb // 4) % 4, cb % 4)
+                diff = [p for p in range(3) if na[p] != nb[p]]
+                if len(diff) < 2:
+                    continue
+                th = [6, 6, 6]  # index 6 = padding (theta == 1)
+                mult = 1.0
+                for k, p in enumerate(diff):
+                    th[k] = _PAIR_INDEX[_NUC[min(na[p], nb[p])] + _NUC[max(na[p], nb[p])]]
+                    mult *= self.corner_freqs[nb[p], p]
+                rows[len(diff)].append((a, b, th, mult, float(trans[ca] == trans[cb])))
+
+        def dev(values, dtype):
+            return torch.tensor(values, dtype=dtype, device=self.device)
+
+        self._mh_tables = {
+            d: dict(
+                pair_i=dev([r[0] for r in rs], torch.int64),
+                pair_j=dev([r[1] for r in rs], torch.int64),
+                theta_idx=dev([r[2] for r in rs], torch.int64),
+                multiplier=dev([r[3] for r in rs], torch.float64),
+                syn=dev([r[4] for r in rs], torch.float64),
+            )
+            for d, rs in rows.items()
+        }
+        return self._mh_tables
+
+    def multihit_basis_matrices(self, params: Params, hits: int):
+        """(Q_syn, Q_nonsyn) [S,S] of the 2- or 3-hit entry set (zero
+        diagonal), in the parameter dtype."""
+        tbl = self._multihit_tables()[hits]
+        theta = self._theta_vector(params)
+        dtype = theta.dtype
+        theta7 = torch.cat([theta, torch.ones(1, dtype=dtype, device=self.device)])
+        entries = torch.prod(theta7[tbl["theta_idx"]], dim=1) * tbl["multiplier"].to(dtype)
+        syn = tbl["syn"].to(dtype)
+        zeros = torch.zeros((self.n_states, self.n_states), dtype=dtype, device=self.device)
+        idx = (tbl["pair_i"], tbl["pair_j"])
+        return zeros.index_put(idx, entries * syn), zeros.index_put(idx, entries * (1.0 - syn))
 
 
 class MG94xREVPartitionedOmega(MG94Base):
@@ -161,6 +221,16 @@ class MG94xREVPartitionedOmega(MG94Base):
 
     Free parameters: 5 thetas, one omega per branch group, one scaler
     (initialized at 3), or, with ``free_lengths``, one alpha per branch.
+    ``multiple_hits`` "Double" / "Double+Triple" adds the shared 2-hit rate
+    ``delta`` (and 3-hit rate ``psi``): every generator becomes
+    ``alpha_b (Q1s + delta Q2s + psi Q3s) + beta_b (Q1n + delta Q2n + psi
+    Q3n)``.
+
+    Route of the multi-hit generator: the JAX package builds its
+    propagators through ``reversible_spectral`` at every dtype; here they go
+    through :meth:`propagators_grouped` like the single-hit ones — fp64
+    spectral, fp32 shared-power Taylor.  The same function by another route:
+    an fp32 eigendecomposition of a 61-state generator loses ~1e-2.
     """
 
     def __init__(
@@ -172,6 +242,7 @@ class MG94xREVPartitionedOmega(MG94Base):
         branch_groups: np.ndarray,      # [B] int group per branch
         n_groups: int,
         free_lengths: bool = False,     # if True, alpha_b free (init from nuc)
+        multiple_hits: str = "None",    # "None" | "Double" | "Double+Triple"
         device=None,
     ):
         super().__init__(gc, corner_freqs, codon_freqs, device=device)
@@ -182,6 +253,7 @@ class MG94xREVPartitionedOmega(MG94Base):
         self._branch_groups_t = torch.as_tensor(self.branch_groups, device=self.device)
         self.n_groups = n_groups
         self.free_lengths = free_lengths
+        self.multiple_hits = multiple_hits
 
     def parameter_specs(self, n_branches: int) -> Specs:
         specs = self.theta_specs()
@@ -194,6 +266,12 @@ class MG94xREVPartitionedOmega(MG94Base):
             specs["alpha"] = ParamSpec(init=0.15, lower=0.0, upper=10000.0, shape=(n_branches,))
         else:
             specs["scaler"] = ParamSpec(init=3.0, lower=0.0, upper=10000.0, shared=False)
+        if self.multiple_hits != "None":
+            # global 2-hit (delta) / 3-hit (psi) rates shared across
+            # branches and partitions (MG_REV_MH.bf / MG_REV_TRIP.bf)
+            specs["delta"] = ParamSpec(init=0.05, lower=0.0, upper=100.0, shared=True)
+            if self.multiple_hits == "Double+Triple":
+                specs["psi"] = ParamSpec(init=0.05, lower=0.0, upper=100.0, shared=True)
         return specs
 
     def _alphas(self, params: Params) -> torch.Tensor:
@@ -201,13 +279,28 @@ class MG94xREVPartitionedOmega(MG94Base):
             return params["alpha"]
         return params["scaler"] * self.nuc_lengths.to(params["scaler"].dtype)
 
+    def combined_basis_matrices(self, params: Params):
+        """(Q_syn, Q_nonsyn) with the multiple-hit entry sets scaled by
+        delta (2-hit) and psi (3-hit) when enabled."""
+        qs, qn = self.basis_matrices(params)
+        if self.multiple_hits != "None":
+            q2s, q2n = self.multihit_basis_matrices(params, 2)
+            qs = qs + params["delta"] * q2s
+            qn = qn + params["delta"] * q2n
+            if self.multiple_hits == "Double+Triple":
+                q3s, q3n = self.multihit_basis_matrices(params, 3)
+                qs = qs + params["psi"] * q3s
+                qn = qn + params["psi"] * q3n
+        return qs, qn
+
     def build(self, params: Params, n_branches: int) -> ModelOutput:
         p = self.propagators_grouped(
-            params, self._alphas(params), params["omega"], self.branch_groups
+            self.combined_basis_matrices(params), self._alphas(params), params["omega"],
+            self.branch_groups,
         )
         return ModelOutput(p_matrices=p, root_freqs=self.frequencies)
 
     def branch_lengths(self, params: Params) -> torch.Tensor:
         alpha = self._alphas(params)
         beta = alpha * params["omega"][self._branch_groups_t]
-        return self.rate_per_branch(params, alpha, beta)
+        return self.rate_per_branch(self.combined_basis_matrices(params), alpha, beta)

@@ -25,9 +25,27 @@ from hyphy_tpu_torch.models.parameters import ParamSpec
 from hyphy_tpu_torch.optimize.core import maximize
 
 
-def empirical_nucleotide(filt: DataFilter) -> np.ndarray:
-    """4 empirical nucleotide frequencies (GTR's estimator)."""
-    return filt.harvest_frequencies(1, 1, False)[:, 0]
+def _combined_harvest(filts, unit: int, atom: int, position_specific: bool) -> np.ndarray:
+    """Frequency harvest over one filter or a list of them.  A list (the
+    partitions of a multi-partition analysis) pools the counts weighted by
+    each filter's column count: the reference harvests ONE model's
+    frequencies across all partition filters (``estimators.CreateLFObject``,
+    ``estimators.bf:982``)."""
+    if isinstance(filts, DataFilter):
+        return filts.harvest_frequencies(unit, atom, position_specific)
+    total, weight = None, 0.0
+    for f in filts:
+        w = float(f.n_units * f.n_sequences)
+        h = f.harvest_frequencies(unit, atom, position_specific) * w
+        total = h if total is None else total + h
+        weight += w
+    return total / max(weight, 1e-300)
+
+
+def empirical_nucleotide(filt) -> np.ndarray:
+    """4 empirical nucleotide frequencies (GTR's estimator), from one
+    DataFilter or pooled over a list of them."""
+    return _combined_harvest(filt, 1, 1, False)[:, 0]
 
 
 def _codon_from_corners(corners: np.ndarray, gc: GeneticCode) -> np.ndarray:
@@ -46,9 +64,10 @@ def _codon_from_corners(corners: np.ndarray, gc: GeneticCode) -> np.ndarray:
     )
 
 
-def f3x4(filt: DataFilter, gc: GeneticCode) -> Tuple[np.ndarray, np.ndarray]:
-    """Returns (corner_freqs [4,3], codon_freqs [n_sense])."""
-    obs = filt.harvest_frequencies(3, 1, True)  # [4, 3]
+def f3x4(filt, gc: GeneticCode) -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (corner_freqs [4,3], codon_freqs [n_sense]); ``filt`` is
+    one DataFilter or a list of them (pooled)."""
+    obs = _combined_harvest(filt, 3, 1, True)  # [4, 3]
     return obs, _codon_from_corners(obs, gc)
 
 
@@ -69,14 +88,15 @@ def _stick_init(freqs: np.ndarray) -> np.ndarray:
     return p
 
 
-def cf3x4(filt: DataFilter, gc: GeneticCode, device=None) -> Tuple[np.ndarray, np.ndarray]:
-    """Corrected F3x4: returns (corner_freqs n [4,3], codon_freqs [n_sense]).
+def cf3x4(filt, gc: GeneticCode, device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Corrected F3x4: returns (corner_freqs n [4,3], codon_freqs [n_sense]);
+    ``filt`` is one DataFilter or a list of them (pooled).
 
     Solves the least-squares problem of ``frequencies._aux.CF3x4``
     (frequencies.bf:510) in fp64 on ``device``.
     """
     device = resolve_device(device)
-    obs = filt.harvest_frequencies(3, 1, True)  # [4, 3] observed
+    obs = _combined_harvest(filt, 3, 1, True)  # [4, 3] observed
     stops = gc.stop_codons
     s0, s1, s2 = (torch.as_tensor(x.astype(np.int64), device=device)
                   for x in (stops // 16, (stops // 4) % 4, stops % 4))

@@ -272,7 +272,7 @@ def _renormalise(msg, w, karity, log_scale):
         prod, logs = _chunked_product(chunks, 2)
         log_scale = log_scale + torch.sum(logs, dim=1)
     mx = torch.amax(prod, dim=-1, keepdim=True)
-    mx = torch.where(mx > 0, mx, torch.ones((), dtype=mx.dtype, device=mx.device))
+    mx = torch.where(mx > 0, mx, 1.0)
     return prod / mx, log_scale + torch.sum(torch.log(mx[..., 0]), dim=1)
 
 
@@ -305,23 +305,31 @@ def single_site_log_likelihood_taylor(
     branches over the whole batch sets, the trip count of the reference's
     ``while_loop`` under ``vmap``: the extra steps are no-ops for the sites
     whose bits are 0.  The per-branch maxima reach the host once per call.
+
+    Launches per level are kept few, since at a few hundred sites the host
+    issues them slower than the card runs them: the ladder's bit masks and
+    the Horner coefficients ``r_b / k`` are made once per level, and each
+    Horner step is one ``bmm`` and one ``addcmul``.
     """
     n_nodes = data.n_nodes
     n_sites, _, states = leaf_vectors.shape
+    dtype, device = leaf_vectors.dtype, leaf_vectors.device
     n_groups, n_ladder = m2p.shape[1], m2p.shape[2]
-    r_all = _per_branch(r.to(leaf_vectors.dtype), n_nodes)            # [N, n_nodes + 1]
+    r_all = _per_branch(r.to(dtype), n_nodes)                          # [N, n_nodes + 1]
     j_all = _per_branch(j.to(torch.int64), n_nodes)
     g_all = _per_branch(group_of_branch.to(torch.int64), n_nodes)     # [n_nodes + 1]
     j_max = j_all.amax(dim=0).cpu().numpy()
-    qn_t, m2p_t = qn.transpose(-1, -2), m2p.transpose(-1, -2)
+    qn_t = qn.transpose(-1, -2).contiguous()
+    m2p_t = m2p.transpose(-1, -2).contiguous()
+    ks = torch.arange(n_terms, 0, -1, dtype=dtype, device=device)      # Horner order
+    shifts = torch.arange(n_ladder, device=device)
 
-    def action(v, rb, jb, bits, g):
+    def action(v, coef, bit, bits, g):
         for k in range(bits):
-            bit = ((jb >> k) & 1).to(torch.bool)
-            v = torch.where(bit[..., None], torch.bmm(v, m2p_t[:, g, k]), v)
+            v = torch.where(bit[..., k : k + 1], torch.bmm(v, m2p_t[:, g, k]), v)
         acc = v
-        for k in range(n_terms, 0, -1):
-            acc = v + (rb / k)[..., None] * torch.bmm(acc, qn_t[:, g])
+        for i in range(n_terms):
+            acc = torch.addcmul(v, coef[..., i : i + 1], torch.bmm(acc, qn_t[:, g]))
         return acc
 
     buf = _site_buffer(leaf_vectors, n_nodes)
@@ -330,11 +338,14 @@ def single_site_log_likelihood_taylor(
         w, karity = plan.child_storage.shape
         flat_b = plan.child_branch.reshape(-1)
         v = buf[:, plan.child_storage.reshape(-1)]                     # [N, F, S]
-        rb, jb = r_all[:, flat_b], j_all[:, flat_b]
+        coef = r_all[:, flat_b, None] / ks                             # [N, F, terms]
         bits = min(n_ladder, int(j_max[child_branch.reshape(-1)].max()).bit_length())
-        msg = action(v, rb, jb, bits, 0)
+        bit = None
+        if bits:
+            bit = ((j_all[:, flat_b, None] >> shifts[:bits]) & 1).to(torch.bool)  # [N, F, bits]
+        msg = action(v, coef, bit, bits, 0)
         for g in range(1, n_groups):
-            msg = torch.where((g_all[flat_b] == g)[:, None], action(v, rb, jb, bits, g), msg)
+            msg = torch.where((g_all[flat_b] == g)[:, None], action(v, coef, bit, bits, g), msg)
         msg = torch.clamp_min(msg, 0.0)
         prod, log_scale = _renormalise(msg, w, karity, log_scale)
         buf[:, offset : offset + w] = prod

@@ -1,8 +1,10 @@
-"""Batched start selection for per-site fits.
+"""Batched start selection and site-chunked solves for per-site fits.
 
 Counterpart of ``grid_best_starts`` in ``hyphy_tpu/optimize/batched.py``
-(the reference's OPTIMIZATION_START_GRID semantics, ``FEL.bf:609-734``).
-``vmapped_maximize`` has no caller in the ported methods and is not ported.
+(the reference's OPTIMIZATION_START_GRID semantics, ``FEL.bf:609-734``),
+and of ``hyphy_tpu/parallel/mesh.py::sharded_site_solve`` for one card:
+:func:`chunked_site_solve`.  ``vmapped_maximize`` has no caller in the
+ported methods and is not ported.
 """
 
 from __future__ import annotations
@@ -38,3 +40,43 @@ def grid_best_starts(
     ])                                                   # [G, N]
     best = torch.argmax(values, dim=0)                   # [N]
     return {k: v[best] for k, v in grid.items()}, values
+
+
+# share of the card's free memory one chunk of a site solve may take
+_FREE_MEMORY_SHARE = 0.5
+
+
+def site_chunk(n_items: int, bytes_per_item: float, device) -> int:
+    """Items per chunk of a site solve on ``device``: on the card, as many
+    as half its free memory holds at ``bytes_per_item`` each; on the CPU,
+    every item at once."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return max(n_items, 1)
+    free, _ = torch.cuda.mem_get_info(device)
+    return max(1, min(n_items, int(_FREE_MEMORY_SHARE * free // max(bytes_per_item, 1))))
+
+
+def chunked_site_solve(
+    solver: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
+    n_items: int,
+    bytes_per_item: float,
+    device,
+) -> Dict[str, torch.Tensor]:
+    """Run ``solver(idx [n]) -> {k: [n, ...]}`` over consecutive chunks of
+    ``range(n_items)`` and join the outputs along axis 0.
+
+    The one-card counterpart of the JAX package's ``sharded_site_solve``:
+    the batch is split in time instead of across devices, in chunks of
+    :func:`site_chunk` items.  A batched per-site solver
+    whose items are independent — grid starts and the Nelder-Mead, which
+    freezes converged items by mask — gives every item the same result
+    whatever the chunking."""
+    chunk = site_chunk(n_items, bytes_per_item, device)
+    parts = [
+        solver(torch.arange(lo, min(lo + chunk, n_items), device=device))
+        for lo in range(0, n_items, chunk)
+    ]
+    if len(parts) == 1:
+        return parts[0]
+    return {k: torch.cat([p[k] for p in parts], dim=0) for k in parts[0]}

@@ -123,7 +123,8 @@ def test_per_site_stage_matches_on_identical_inputs(tiny, jax_runs, case, monkey
     monkeypatch.setenv("HYPHY_TPU_PROGRESS", "0")
     monkeypatch.setattr(tcommon, "fit_gtr_multi", lambda md, precision=1e-5: _carried_gtr(jgtr))
     monkeypatch.setattr(tcommon, "fit_partitioned_mg94_multi",
-                        lambda md, gtr, precision=1e-5: _carried_mg94(jmg, md.parts[0]))
+                        lambda md, gtr, precision=1e-5, multiple_hits="None":
+                            _carried_mg94(jmg, md.parts[0]))
     res = fel.run(tiny["fasta"], tree=tiny["tree"], srv=srv, branches=branches)
 
     np.testing.assert_array_equal(res.data.tested_branches, jres.data.tested_branches)
@@ -159,19 +160,3 @@ def test_fel_end_to_end_matches(tiny, jax_runs, monkeypatch):
     constant = res.data.codon_filter.constant_pattern_mask()[res.data.codon_filter.duplicate_map]
     assert constant.any()
     np.testing.assert_array_equal(ours[constant], [[0, 0, 0, 0, 1, 0]] * int(constant.sum()))
-
-
-@pytest.mark.parametrize("option", [{"resample": 10}, {"multiple_hits": "Double"}, {"ci": True}])
-def test_options_not_ported_raise(tiny, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fel.run(tiny["fasta"], tree=tiny["tree"], **option)
-
-
-def test_charsets_raise(tmp_path):
-    nexus = tmp_path / "parts.nex"
-    nexus.write_text(
-        "#NEXUS\nBEGIN DATA;\nDIMENSIONS NTAX=2 NCHAR=6;\nFORMAT DATATYPE=DNA;\n"
-        "MATRIX\na ATGATG\nb ATGATA\n;\nEND;\nBEGIN ASSUMPTIONS;\n"
-        "CHARSET one = 1-3;\nCHARSET two = 4-6;\nEND;\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcommon.load_codon_data_multi(str(nexus), tree_newick="(a:0.1,b:0.1)")

@@ -22,7 +22,13 @@ for mod in pkgutil.walk_packages(hyphy_tpu_torch.__path__, "hyphy_tpu_torch."):
 leaked = sorted(m for m in sys.modules
                 if m == "hyphy_tpu" or m.startswith("hyphy_tpu."))
 print("LEAKED", leaked)
+print("LOADED", sorted(m for m in sys.modules if m.startswith("hyphy_tpu_torch.")))
 """
+
+# modules added with FEL's options and CHARSET partitions, which the walk
+# above must reach
+_NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batched",
+                "hyphy_tpu_torch.methods.fel", "hyphy_tpu_torch.io.json_out"]
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -32,6 +38,9 @@ def test_imports_without_jax_or_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout
+    loaded = out.stdout.split("LOADED", 1)[1]
+    for name in _NEW_MODULES:
+        assert repr(name) in loaded, name
 
 
 def test_sources_reference_neither_jax_nor_the_jax_package():
@@ -39,7 +48,7 @@ def test_sources_reference_neither_jax_nor_the_jax_package():
         r"^\s*(import|from)\s+jax\b|\bhyphy_tpu\.|from\s+hyphy_tpu\s|import\s+hyphy_tpu\b"
     )
     offenders = []
-    for path in PACKAGE.rglob("*.py"):
+    for path in [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py"]:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             # references to the port itself are allowed
             if bad.search(line.replace("hyphy_tpu_torch", "")):
@@ -53,6 +62,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from hyphy_tpu_torch.data.filter import DataFilter
     from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
     from hyphy_tpu_torch.methods import fel
+    from hyphy_tpu_torch.methods.common import load_codon_data_multi
     from hyphy_tpu_torch.models.dna import GTR
     from hyphy_tpu_torch.optimize.core import maximize
     from hyphy_tpu_torch.tree.topology import Tree
@@ -78,6 +88,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     out = tmp_path / "a.json"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["fel", "--alignment", str(fasta), "--tree", newick, "--output", str(out)])
+    assert not out.exists()
+    # the options and CHARSET partitions take the same road
+    nexus = tmp_path / "parts.nex"
+    nexus.write_text(
+        "#NEXUS\nBEGIN DATA;\nDIMENSIONS NTAX=4 NCHAR=15;\nFORMAT DATATYPE=DNA;\nMATRIX\n"
+        + "".join(f"{n} {s}\n" for n, s in zip(aln.names, aln.sequences))
+        + ";\nEND;\nBEGIN ASSUMPTIONS;\nCHARSET one = 1-6;\nCHARSET two = 7-15;\nEND;\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_codon_data_multi(str(nexus), tree_newick=newick)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["fel", "--alignment", str(nexus), "--tree", newick, "--output", str(out),
+                  "--ci", "Yes", "--resample", "2", "--multiple-hits", "Double+Triple"])
     assert not out.exists()
     # asking for the CPU is the only way onto it
     lf = LikelihoodFunction([Partition(filt, tree, model)], device="cpu")
