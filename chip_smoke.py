@@ -44,9 +44,29 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      (codons cut so that the profile's ~60 batched fits and the bootstrap's
      host sampling fit the run; capped under ``--full-fit`` too): seconds
      of the CI and of the bootstrap apart, LB <= MLE <= UB, bootstrap p in
-     multiples of 1/11.
+     multiples of 1/11;
+  (after phase 6) the Nelder-Mead's fused four-probe body against its
+     sequential probes on phase 6's objective at 128, 512 and 2048 sites:
+     ms and launches per iteration, peak memory, results equal bit for bit;
+  9. SLAC at full width: ``simulated_codon_alignment(1000, 2048, seed=11)``
+     with omega = 5 at nine planted codons, through ``warmup slac
+     --samples 10`` in-process: seconds per stage (load, GTR, MG94, joint
+     reconstruction, counts, sampling), peak memory, K1 launches; the
+     card's fp64 joint states against the host's on identical inputs
+     (equal), root lnL within 1e-9 relative, fp32's share of equal states;
+     the JSON (headers, finite tables, 2.5% <= median <= 97.5%);
+ 10. ``warmup simulate --replicates 2`` on phase 9's alignment: the
+     replicates have its taxa and codons;
+ 11. MEME on phase 9's alignment cut to 512 codons (the EBF's items grow
+     with codons x tested branches), through ``warmup meme``: seconds per
+     stage (FEL, candidates, alternative, null, EBF), the EBF's items and
+     chunks, K1 launches, one batched mixture evaluation timed and
+     profiled; the mixture site lnL card vs host (fp64 Taylor, 1e-9) and
+     fp32 vs fp64 (0.03); the planted codons at p <= 0.1; the EBFs of the
+     sites one chunk holds, and of 64 sites, held bit for bit between the
+     chunks free memory gives and forced chunks of 997 items.
 
-K1's ``launches`` on the kernels line sum phases 4, 7 and 8.  It imports
+K1's ``launches`` on the kernels line sum phases 4, 7, 8, 9, 10 and 11.  It imports
 nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
 and ``{"ok": true, "device": {...}}``; a longer record goes to
@@ -127,6 +147,16 @@ N_PARTS, PART_CODONS = 4, 512
 MH_SITE_POINTS = [(1.0, 1.0, 0.05, 0.05), (0.01, 0.1, 1.0, 1.0), (10.0, 50.0, 10.0, 5.0)]
 # phase 8: codons of the CI / bootstrap run, and bootstrap replicates
 CI_CODONS, N_RESAMPLE = 128, 10
+# the fused Nelder-Mead probes: sites, and iterations timed
+FUSED_SITES, FUSED_ITERATIONS = [128, 512, 2048], 6
+# phases 9-11: an alignment simulated along random_tree_newick(N_TAXA, SEED)
+# with omega = PLANTED_OMEGA at these codons (0.3 elsewhere)
+PLANTED_SITES, PLANTED_OMEGA = [37, 101, 190, 263, 333, 402, 475, 1100, 1700], 5.0
+# phase 9: SLAC's ancestral samples; patterns held card vs host; root lnL bound
+SLAC_SAMPLES, SLAC_HOST_PATTERNS, SLAC_LNL_REL_BOUND = 10, 512, 1e-9
+# phase 11: MEME's codons (the EBF's items grow with codons x tested
+# branches: ~1.02 M at 512); sites and forced items per chunk of the split
+MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 512, 64, 997
 
 
 def log(msg: str) -> None:
@@ -912,7 +942,7 @@ class _CallClock:
             setattr(owner, name, original)
 
 
-def _run_fel_cli(torch, argv, targets):
+def _run_cli(torch, argv, targets):
     """``python -m hyphy_tpu_torch`` with ``argv``, in-process, under a
     :class:`_CallClock`; K1's launch count set to 0 just before and read
     just after; peak device memory over the run."""
@@ -930,7 +960,7 @@ def _run_fel_cli(torch, argv, targets):
     finally:
         launches = level_products.launches
         clock.restore()
-    check(rc == 0, f"the fel command returned {rc}")
+    check(rc == 0, f"the {' '.join(argv[:2])} command returned {rc}")
     return clock, {"total_s": total, "level_products_launches": launches,
                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -1020,7 +1050,7 @@ def phase_partitions(torch, aln, newick: str, tmp: str, full_fit: bool) -> dict:
             "--multiple-hits", "Double+Triple", "--site-multihit", "Estimate"]
     if not full_fit:
         argv = ["warmup"] + argv
-    clock, res = _run_fel_cli(torch, argv, [
+    clock, res = _run_cli(torch, argv, [
         (common, "load_codon_data_multi", "load"),
         (common, "fit_gtr_multi", "gtr"),
         (common, "fit_partitioned_mg94_multi", "mg94"),
@@ -1140,7 +1170,7 @@ def phase_options(torch, tmp: str) -> dict:
     out_json = os.path.join(tmp, "ci.FEL.json")
     argv = ["warmup", "fel", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
             "--ci", "Yes", "--resample", str(N_RESAMPLE)]
-    clock, res = _run_fel_cli(torch, argv, [
+    clock, res = _run_cli(torch, argv, [
         (fel, "solve_partition", "per_site"),
         (fel, "_profile_ci", "ci"),
         (fel, "_simulate_null_states", "bootstrap_simulation"),
@@ -1183,6 +1213,358 @@ def phase_options(torch, tmp: str) -> dict:
     return res
 
 
+def phase_fused_probes(torch, data, mgp) -> dict:
+    """The Nelder-Mead's fused four-probe body against its three
+    sequential probes on phase 6's objective (fp32 Taylor, FEL's
+    alternative at phase 4's MG94 fit) at 128, 512 and 2048 sites: ms per
+    iteration, kernel launches per iteration, peak memory; the two results
+    held equal bit for bit."""
+    from hyphy_tpu_torch.methods import fel
+    from hyphy_tpu_torch.models.parameters import ParamSpec
+    from hyphy_tpu_torch.optimize.nelder_mead import vmapped_nelder_mead
+
+    loglik = fel.site_log_likelihood(data, mgp, torch.float32, False)
+    n_groups = 2 if (~data.tested_branches).any() else 1
+    specs = {k: ParamSpec(init=1.0, lower=0.0, upper=10000.0) for k in ("alpha", "beta")}
+
+    def objective(idx, p):
+        return loglik(idx, p["alpha"], p["beta"][:, None].expand(-1, n_groups))
+
+    res = {"iterations": FUSED_ITERATIONS, "rows": []}
+    for n in FUSED_SITES:
+        n = min(n, data.codon_filter.n_patterns)
+        idx = torch.arange(n, device=DEVICE)
+        start = {k: torch.full((n,), v, dtype=torch.float64, device=DEVICE)
+                 for k, v in (("alpha", 1.0), ("beta", 0.5))}
+        out = {}
+        for fused in (False, True):
+            def run(iterations):
+                with torch.no_grad():
+                    return vmapped_nelder_mead(objective, specs, start, idx,
+                                               max_iterations=iterations, fused=fused)
+
+            t_init = min(wall_ms(torch, lambda: run(0), 2))
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, values = run(FUSED_ITERATIONS)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            prof = profile_ms(torch, lambda: run(2), os.path.join(
+                "chiprun_out", f"profile_nm_{'fused' if fused else 'sequential'}_{n}.txt"))
+            prof0 = profile_ms(torch, lambda: run(0), os.path.join(
+                "chiprun_out", f"profile_nm_init_{n}.txt"))
+            out[fused] = (params, values)
+            res["rows"].append({
+                "sites": n, "fused": fused,
+                "ms_per_iteration": (total - t_init) / FUSED_ITERATIONS,
+                "launches_per_iteration": (prof["launches"] - prof0["launches"]) / 2,
+                "kernel_ms_per_iteration": (prof["device_ms"] - prof0["device_ms"]) / 2,
+                "peak_gb": peak})
+            row = res["rows"][-1]
+            log(f"[fused] {n} sites, {'fused' if fused else 'sequential'} probes: "
+                f"{row['ms_per_iteration']:.3f} ms per iteration ({row['kernel_ms_per_iteration']:.3f} "
+                f"ms of kernels in {row['launches_per_iteration']:.0f} launches), peak "
+                f"{row['peak_gb']:.2f} GB")
+        same = all(torch.equal(out[True][0][k], out[False][0][k]) for k in specs) and torch.equal(
+            out[True][1], out[False][1])
+        res.setdefault("identical", []).append(bool(same))
+        check(same, f"fused and sequential Nelder-Mead differ at {n} sites")
+    log(f"[fused] fused and sequential results identical at {FUSED_SITES}: {res['identical']}")
+    return res
+
+
+def _write_fasta(path, names, seqs):
+    with open(path, "w") as fh:
+        fh.write("".join(f">{n}\n{s}\n" for n, s in zip(names, seqs)))
+
+
+def _planted_alignment(tmp: str):
+    """``simulated_codon_alignment(N_TAXA, N_CODONS, seed=SEED)`` with
+    omega = PLANTED_OMEGA at PLANTED_SITES (0.3 elsewhere), as FASTA and
+    newick files."""
+    import numpy as np
+
+    from hyphy_tpu_torch.utils.synth import simulated_codon_alignment
+
+    omegas = np.full(N_CODONS, 0.3)
+    omegas[PLANTED_SITES] = PLANTED_OMEGA
+    t0 = time.perf_counter()
+    aln, newick = simulated_codon_alignment(N_TAXA, N_CODONS, seed=SEED, site_omegas=omegas)
+    fasta = os.path.join(tmp, "sim.fasta")
+    _write_fasta(fasta, aln.names, aln.sequences)
+    tree_path = os.path.join(tmp, "sim.nwk")
+    with open(tree_path, "w") as fh:
+        fh.write(newick)
+    log(f"[slac] simulated_codon_alignment({N_TAXA}, {N_CODONS}, seed={SEED}), omega "
+        f"{PLANTED_OMEGA} at codons {PLANTED_SITES}: {time.perf_counter() - t0:.2f} s on the host")
+    return aln, fasta, tree_path
+
+
+def phase_slac(torch, fasta: str, tree_path: str, tmp: str) -> dict:
+    """SLAC at full width through ``warmup slac --samples SLAC_SAMPLES``,
+    in-process: seconds per stage, peak memory, K1 launches; the card's
+    fp64 joint reconstruction against the host's on identical inputs
+    (SLAC_HOST_PATTERNS patterns), fp32's share of equal states; the JSON."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import common, slac
+    from hyphy_tpu_torch.ops import ancestral, pruning
+
+    out_json = os.path.join(tmp, "sim.SLAC.json")
+    argv = ["warmup", "slac", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--samples", str(SLAC_SAMPLES)]
+    clock, res = _run_cli(torch, argv, [
+        (common, "load_codon_data_multi", "load"),
+        (common, "fit_gtr_multi", "gtr"),
+        (common, "fit_partitioned_mg94_multi", "mg94"),
+        (ancestral, "joint_reconstruct", "joint_reconstruction"),
+        (slac, "compute_counts", "counts"),
+        (ancestral, "sample_ancestors", "sampling"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["calls"] = dict(clock.calls)
+    with open(out_json) as fh:
+        result = json.load(fh)
+    headers = [h[0] for h in result["MLE"]["headers"]]
+    check(headers == [c[0] for c in slac.COLUMNS], f"SLAC headers {headers}")
+    tables = {key: np.asarray(result["MLE"]["content"]["0"]["by-site"][key], dtype=np.float64)
+              for key in ("RESOLVED", "AVERAGED")}
+    for key, table in tables.items():
+        check(table.shape == (N_CODONS, len(headers)), f"SLAC {key} of shape {table.shape}")
+        check(bool(np.isfinite(table).all()), f"non-finite entries in SLAC {key}")
+    # the extended binomial tail (slac.extendedBinTail, copied as it is) of
+    # a non-integer count is not held to [0, 1]; its range is recorded
+    res["binomial_p_range"] = [float(tables["RESOLVED"][:, 8:10].min()),
+                               float(tables["RESOLVED"][:, 8:10].max())]
+    q = {key: np.asarray(result[key]["0"]["by-site"]["RESOLVED"], dtype=np.float64)
+         for key in ("sample-2.5", "sample-median", "sample-97.5")}
+    for key, table in q.items():
+        check(table.shape == (N_CODONS, len(headers)) and bool(np.isfinite(table).all()),
+              f"SLAC {key}: shape {table.shape} or non-finite entries")
+    check(bool((q["sample-2.5"] <= q["sample-median"] + 1e-12).all()
+               and (q["sample-median"] <= q["sample-97.5"] + 1e-12).all()),
+          "SLAC sample quantiles out of order")
+    resolved = tables["RESOLVED"]
+    res["table"] = {"sites": int(resolved.shape[0]),
+                    "p_dnds_gt_1_le_0.1": int((resolved[:, 8] <= 0.1).sum()),
+                    "planted_p_le_0.1": int((resolved[PLANTED_SITES, 8] <= 0.1).sum()),
+                    "median_subs": float(np.median(resolved[:, 2] + resolved[:, 3]))}
+
+    # the card's fp64 joint reconstruction against the host's on identical
+    # inputs (the card's propagators and leaf partials), and fp32's states
+    (p_mat, lp, freqs, schedule), joint = clock.last["joint_reconstruction"]
+    tree = clock.last["mg94"][0][0].parts[0].tree
+    h = min(SLAC_HOST_PATTERNS, lp.shape[1])
+    with torch.no_grad():
+        host = ancestral.joint_reconstruct(p_mat.cpu(), lp[:, :h].cpu(), freqs.cpu(),
+                                           pruning.build_pruning_data(tree, "cpu"))
+        t0 = time.perf_counter()
+        f32 = ancestral.joint_reconstruct(p_mat.float(), lp.float(), freqs.float(), schedule)
+        torch.cuda.synchronize()
+        f32_s = time.perf_counter() - t0
+    card_states = joint.internal_states.cpu()
+    res["fp64_states_card_vs_host_equal"] = bool(torch.equal(card_states[:, :h], host.internal_states))
+    card_lnl = joint.root_loglik[:h].cpu()
+    res["fp64_root_lnl_max_rel"] = float(((card_lnl - host.root_loglik).abs()
+                                          / host.root_loglik.abs()).max())
+    res["fp32_states_equal_share"] = float((f32.internal_states.cpu() == card_states)
+                                           .double().mean())
+    res["fp32_joint_s"] = f32_s
+    res["host_patterns"] = h
+    log(f"[slac] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items()) + f"; calls {res['calls']}")
+    log(f"[slac] K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
+        f"table {res['table']}; binomial p range {res['binomial_p_range']}")
+    log(f"[slac] fp64 joint reconstruction, card vs host on identical inputs ({h} patterns): "
+        f"states equal {res['fp64_states_card_vs_host_equal']}, root lnL max rel "
+        f"{res['fp64_root_lnl_max_rel']:.3e} (bound {SLAC_LNL_REL_BOUND}); fp32 on the card: "
+        f"{res['fp32_states_equal_share']:.6f} of the states equal to fp64's "
+        f"({f32_s:.3f} s)")
+    check(res["fp64_states_card_vs_host_equal"], "SLAC fp64 states: card differs from host")
+    check(res["fp64_root_lnl_max_rel"] <= SLAC_LNL_REL_BOUND,
+          "SLAC root lnL: card differs from host")
+    check(res["level_products_launches"] > 0, "SLAC launched no level_products kernel")
+    return res
+
+
+def phase_simulate(torch, aln, fasta: str, tree_path: str, tmp: str) -> dict:
+    """``warmup simulate --replicates 2`` on phase 9's alignment through the
+    CLI in-process: the replicates have the input's taxa and codons."""
+    from hyphy_tpu_torch.data.alignment import read_alignment
+    from hyphy_tpu_torch.methods import common, simulate
+
+    out_json = os.path.join(tmp, "replicates.json")
+    argv = ["warmup", "simulate", "--alignment", fasta, "--tree", tree_path,
+            "--output", out_json, "--replicates", "2", "--seed", "3"]
+    clock, res = _run_cli(torch, argv, [
+        (common, "load_codon_data", "load"),
+        (common, "fit_gtr", "gtr"),
+        (common, "fit_partitioned_mg94", "mg94"),
+        (simulate, "simulate_states", "simulation"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    with open(out_json) as fh:
+        files = json.load(fh)["files"]
+    check(len(files) == 2, f"simulate wrote {files}")
+    for path in files:
+        rep = read_alignment(path)
+        check(sorted(rep.names) == sorted(aln.names), f"{path}: other taxa")
+        check({len(s) for s in rep.sequences} == {3 * N_CODONS}, f"{path}: other length")
+    res["replicates"] = len(files)
+    log(f"[simulate] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
+        f"{len(files)} replicates of {N_TAXA} taxa x {N_CODONS} codons")
+    check(res["level_products_launches"] > 0, "simulate launched no level_products kernel")
+    return res
+
+
+def phase_meme(torch, aln, tree_path: str, tmp: str) -> dict:
+    """MEME on phase 9's alignment cut to MEME_CODONS codons through
+    ``warmup meme``, in-process: seconds per stage, the EBF's items and
+    chunks, K1 launches; one batched mixture evaluation timed; the mixture
+    site lnL card vs host (fp64 Taylor) and fp32 vs fp64; the planted
+    sites' calls; the EBF split held bit for bit."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import common, meme
+    from hyphy_tpu_torch.optimize import batched
+
+    fasta = os.path.join(tmp, "meme.fasta")
+    _write_fasta(fasta, aln.names, [s[: 3 * MEME_CODONS] for s in aln.sequences])
+    out_json = os.path.join(tmp, "meme.MEME.json")
+    argv = ["warmup", "meme", "--alignment", fasta, "--tree", tree_path, "--output", out_json]
+    solves = []
+    original_solve = meme.chunked_site_solve
+
+    def recorded_solve(solver, n_items, bytes_per_item, device, chunk=None):
+        solves.append({"items": n_items, "bytes_per_item": bytes_per_item,
+                       "chunk": chunk or batched.site_chunk(n_items, bytes_per_item, device)})
+        return original_solve(solver, n_items, bytes_per_item, device, chunk=chunk)
+
+    meme.chunked_site_solve = recorded_solve
+    try:
+        clock, res = _run_cli(torch, argv, [
+            (common, "load_codon_data_multi", "load"),
+            (common, "fit_gtr_multi", "gtr"),
+            (common, "fit_partitioned_mg94_multi", "mg94"),
+            (meme, "_fel_stage", "fel"),
+            (meme, "_candidate_starts", "candidates"),
+            (meme, "_alternative_stage", "alternative"),
+            (meme, "_null_stage", "null"),
+            (meme, "branch_ebfs", "ebf"),
+            (meme, "vmapped_nelder_mead", "nelder_mead"),
+        ])
+    finally:
+        meme.chunked_site_solve = original_solve
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["calls"] = dict(clock.calls)
+    res["site_eval_ms"] = _eval_stats(clock.eval_ms)
+    ebf_solve = solves[-1]
+    res["ebf_items"] = ebf_solve["items"]
+    res["ebf_chunk"] = ebf_solve["chunk"]
+    res["ebf_chunks"] = -(-ebf_solve["items"] // ebf_solve["chunk"])
+    res["solves"] = solves
+    with open(out_json) as fh:
+        result = json.load(fh)
+    headers = [h[0] for h in result["MLE"]["headers"]]
+    check(headers[:3] == ["&alpha;", "&beta;<sup>1</sup>", "p<sup>1</sup>"]
+          and headers[-2:] == ["FEL &alpha;", "FEL &beta;"], f"MEME headers {headers}")
+    table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    check(table.shape == (MEME_CODONS, len(headers)), f"MEME table of shape {table.shape}")
+    check(bool(np.isfinite(table).all()), "non-finite entries in the MEME table")
+    p = table[:, headers.index("p-value")]
+    check(bool(((p >= 0) & (p <= 1)).all()), "MEME p-values outside [0, 1]")
+    planted = [s for s in PLANTED_SITES if s < MEME_CODONS]
+    res["table"] = {"sites_p_le_0.1": int((p <= 0.1).sum()), "planted": planted,
+                    "planted_p": p[planted].tolist(),
+                    "branches_under_selection_max": float(
+                        table[:, headers.index("# branches under selection")].max())}
+    check(bool((p[planted] <= 0.1).all()), f"planted sites not at p <= 0.1: {p[planted]}")
+
+    # one batched mixture evaluation of every pattern, at the stage's starts
+    sites, _, idx, starts = clock.last["alternative"][0]
+    with torch.no_grad():
+        row = _event_and_wall_ms(torch, lambda: sites.loglik(idx, starts), 3)
+        row["profile"] = profile_ms(torch, lambda: sites.loglik(idx, starts),
+                                    os.path.join("chiprun_out", "profile_meme_mixture.txt"))
+    row["sites"] = int(idx.shape[0])
+    res["mixture_eval"] = row
+    prof = row["profile"]
+    log(f"[meme] one batched mixture evaluation ({row['sites']} sites, fp32 Taylor, "
+        f"{sites.rate_classes + 1} families): events {[round(t, 3) for t in row['event_ms']]} ms, "
+        f"wall {[round(t, 3) for t in row['wall_ms']]} ms, peak {row['peak_gb']:.2f} GB; profiled: "
+        f"wall {prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in {prof['launches']} "
+        f"launches, idle share {prof['idle_share']:.3f}; top {prof['top'][:3]}")
+
+    # card vs host on identical inputs: the mixture site lnL, fp64 Taylor
+    md, mg = clock.last["mg94"][0][0], clock.last["mg94"][1]
+    data, mgp = md.parts[0], mg.parts[0]
+    alt = clock.last["alternative"][1]
+    n = min(SITE_PARITY_N, idx.shape[0])
+    point = {k: v[:n] for k, v in alt.items() if k != "lnl"}
+    with torch.no_grad():
+        card64 = meme.mixture_sites(data, mgp, torch.float64, False, sites.rate_classes)
+        host64 = meme.mixture_sites(data, _host_fit(mgp, data), torch.float64, False,
+                                    sites.rate_classes)
+        on_card = card64.loglik(idx[:n], point).cpu()
+        on_host = host64.loglik(idx[:n].cpu(), {k: v.cpu() for k, v in point.items()})
+        res["mixture_fp64_card_vs_host"] = float((on_card - on_host).abs().max())
+        card32 = meme.mixture_sites(data, mgp, torch.float32, False, sites.rate_classes)
+        full = {k: v for k, v in alt.items() if k != "lnl"}
+        rows = torch.arange(alt["lnl"].shape[0], device=DEVICE)
+        res["mixture_fp32_vs_fp64"] = float(
+            (card32.loglik(rows, full).double() - card64.loglik(rows, full)).abs().max())
+    log(f"[meme] mixture site lnL, fp64 Taylor, card vs host on {n} sites: max |d| "
+        f"{res['mixture_fp64_card_vs_host']:.3e} (bound {SITE_HOST_BOUND}); fp32 vs fp64 on "
+        f"{rows.shape[0]} sites: {res['mixture_fp32_vs_fp64']:.3e} (bound {SITE_FP32_BOUND})")
+    check(res["mixture_fp64_card_vs_host"] <= SITE_HOST_BOUND,
+          "MEME mixture site lnL: card disagrees with host")
+    check(res["mixture_fp32_vs_fp64"] <= SITE_FP32_BOUND, "MEME fp32 mixture lnL far from fp64")
+
+    # the EBF split: the same sites in one chunk, in the run's chunks and in
+    # forced small chunks give the same EBFs bit for bit
+    tested_idx = np.nonzero(data.tested_branches)[0]
+    per_site = len(tested_idx) * (sites.rate_classes - 1)
+    one_chunk = batched.site_chunk(SPLIT_SITES * per_site, sites.item_bytes, DEVICE)
+    n_one = max(1, min(SPLIT_SITES, one_chunk // per_site))
+    split, res["split"] = {}, {}
+    for label, n_sites, chunk in (("one_chunk", n_one, n_one * per_site),
+                                  ("one_chunk_forced", n_one, SPLIT_CHUNK),
+                                  ("free_memory", SPLIT_SITES, None),
+                                  ("forced", SPLIT_SITES, SPLIT_CHUNK)):
+        items = n_sites * per_site
+        chunk = chunk or batched.site_chunk(items, sites.item_bytes, DEVICE)
+        sub = {k: v[:n_sites] for k, v in alt.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            split[label] = meme.branch_ebfs(sites, sub, tested_idx, sites_idx=idx[:n_sites],
+                                            chunk=chunk)
+        torch.cuda.synchronize()
+        res["split"][label] = {"sites": n_sites, "items": items, "chunk": chunk,
+                               "chunks": -(-items // chunk), "s": time.perf_counter() - t0}
+    res["split"]["one_chunk_equal"] = bool(np.array_equal(split["one_chunk"],
+                                                          split["one_chunk_forced"],
+                                                          equal_nan=True))
+    res["split"]["equal"] = bool(np.array_equal(split["free_memory"], split["forced"],
+                                                equal_nan=True))
+    log(f"[meme] EBF split: {res['split']}")
+    check(res["split"]["one_chunk_equal"] and res["split"]["equal"],
+          "MEME EBFs differ between chunkings")
+    log(f"[meme] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items()) + f"; calls {res['calls']}")
+    log(f"[meme] EBF items {res['ebf_items']} in {res['ebf_chunks']} chunks of "
+        f"{res['ebf_chunk']}; K1 launches {res['level_products_launches']}; peak "
+        f"{res['peak_gb']:.2f} GB; batched site evaluations "
+        f"{ {k: round(v, 3) for k, v in res['site_eval_ms'].items()} } ms; table {res['table']}")
+    check(res["level_products_launches"] > 0, "MEME launched no level_products kernel")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -1205,11 +1587,20 @@ def main(argv) -> int:
         data, mgp = record["main_path"].pop("data"), record["main_path"].pop("mg94_fit")
         record["parity"] = phase_parity(torch, aln, newick)
         record["sites"] = phase_sites(torch, data, mgp)
+        torch.cuda.empty_cache()
+        record["fused_probes"] = phase_fused_probes(torch, data, mgp)
         del data, mgp
         torch.cuda.empty_cache()
         record["partitions"] = phase_partitions(torch, aln, newick, tmp, full_fit)
         torch.cuda.empty_cache()
         record["options"] = phase_options(torch, tmp)
+        torch.cuda.empty_cache()
+        sim_aln, sim_fasta, sim_tree = _planted_alignment(tmp)
+        record["slac"] = phase_slac(torch, sim_fasta, sim_tree, tmp)
+        torch.cuda.empty_cache()
+        record["simulate"] = phase_simulate(torch, sim_aln, sim_fasta, sim_tree, tmp)
+        torch.cuda.empty_cache()
+        record["meme"] = phase_meme(torch, sim_aln, sim_tree, tmp)
 
     wide = next(r for r in record["kernels"]["shapes"]
                 if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")
@@ -1222,8 +1613,9 @@ def main(argv) -> int:
     log(f"[kernel] level_products fp32 per evaluation: phase 3 {per_eval['ms']:.4f} ms, "
         f"inside the profiled evaluation {sum(in_eval):.4f} ms; per level, phase 3 / "
         f"evaluation: {[round(a / b, 3) for a, b in zip(per_eval['per_level_ms'], in_eval)]}")
-    launches = {"level_products": sum(record[phase]["level_products_launches"]
-                                      for phase in ("main_path", "partitions", "options"))}
+    launches = {"level_products": sum(
+        record[phase]["level_products_launches"]
+        for phase in ("main_path", "partitions", "options", "slac", "simulate", "meme"))}
     kernels = [{
         "name": name, "route": "cuda", "status": "ok",
         "source": f"hyphy_tpu_torch/csrc/{name}.cu",

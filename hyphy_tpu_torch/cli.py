@@ -1,7 +1,7 @@
 """Command-line interface: ``python -m hyphy_tpu_torch <method> --alignment ...``.
 
-Counterpart of ``hyphy_tpu/cli.py`` for the ported methods (FEL so far),
-with the JAX parser's flags; it writes ``<alignment>.<METHOD>.json`` like
+Counterpart of ``hyphy_tpu/cli.py`` for the ported methods (FEL, SLAC,
+MEME and ``simulate``), with the JAX parser's flags; it writes ``<alignment>.<METHOD>.json`` like
 the reference analyses do.  It runs on ``settings.device`` — the card,
 raising without one; there is no device flag, as the JAX CLI has none.
 """
@@ -24,7 +24,7 @@ def _bool(v: str) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m hyphy_tpu_torch",
-        description="Phylogenetic selection analyses on one CUDA card (FEL)",
+        description="Phylogenetic selection analyses on one CUDA card",
     )
     sub = parser.add_subparsers(dest="method", required=True)
 
@@ -35,26 +35,64 @@ def build_parser() -> argparse.ArgumentParser:
              "runs once without paying for the fits.  Usage: warmup fel "
              "--alignment ...",
     )
-    pw.add_argument("target", help="method to warm up (fel)")
+    pw.add_argument("target", help="method to warm up (fel, slac, meme, simulate)")
     pw.add_argument("rest", nargs=argparse.REMAINDER,
                     help="arguments passed through to the method")
 
+    def common_args(p):
+        p.add_argument("--alignment", required=True, help="in-frame codon alignment (FASTA/NEXUS/PHYLIP)")
+        p.add_argument("--tree", default=None, help="newick tree (file or string; default: tree in the alignment file)")
+        p.add_argument("--code", default="Universal", help="genetic code")
+        p.add_argument("--output", default=None, help="output JSON path")
+
+    def multihit_args(p):
+        p.add_argument("--multiple-hits", dest="multiple_hits", default="None",
+                       choices=["None", "Double", "Double+Triple"])
+        p.add_argument("--site-multihit", dest="site_multihit", default="Estimate",
+                       choices=["Estimate", "Global"])
+
     p = sub.add_parser("fel", help="Fixed Effects Likelihood site selection")
-    p.add_argument("--alignment", required=True, help="in-frame codon alignment (FASTA/NEXUS/PHYLIP)")
-    p.add_argument("--tree", default=None, help="newick tree (file or string; default: tree in the alignment file)")
-    p.add_argument("--code", default="Universal", help="genetic code")
-    p.add_argument("--output", default=None, help="output JSON path")
+    common_args(p)
     p.add_argument("--branches", default="All")
     p.add_argument("--srv", default="Yes")
     p.add_argument("--pvalue", type=float, default=0.1)
     p.add_argument("--resample", type=int, default=0,
                    help="parametric-bootstrap replicates for per-site p-values")
-    p.add_argument("--multiple-hits", dest="multiple_hits", default="None",
-                   choices=["None", "Double", "Double+Triple"])
-    p.add_argument("--site-multihit", dest="site_multihit", default="Estimate",
-                   choices=["Estimate", "Global"])
+    multihit_args(p)
     p.add_argument("--ci", default="No",
                    help="profile-likelihood confidence intervals on site dN/dS")
+
+    p = sub.add_parser("slac", help="Single-Likelihood Ancestor Counting")
+    common_args(p)
+    p.add_argument("--branches", default="All")
+    p.add_argument("--pvalue", type=float, default=0.1)
+    p.add_argument("--samples", type=int, default=0,
+                   help="ancestral-uncertainty resampling draws")
+
+    p = sub.add_parser("meme", help="Mixed Effects Model of Evolution")
+    common_args(p)
+    p.add_argument("--branches", default="All")
+    p.add_argument("--pvalue", type=float, default=0.1)
+    p.add_argument("--rates", type=int, default=2,
+                   help="number of omega rate classes [2-4]")
+    p.add_argument("--resample", type=int, default=0,
+                   help="parametric-bootstrap replicates for per-site p-values "
+                        "(not ported yet)")
+    multihit_args(p)
+
+    p = sub.add_parser(
+        "simulate",
+        help="simulate codon alignments from the MG94xREV fit of the input "
+             "(SimulateDataSet, likefunc.cpp:12584)",
+    )
+    common_args(p)
+    p.add_argument("--branches", default="All")
+    p.add_argument("--replicates", type=int, default=1)
+    p.add_argument("--sites", type=int, default=None,
+                   help="codons per replicate (default: input length)")
+    p.add_argument("--sim-omega", dest="sim_omega", type=float, default=None,
+                   help="override the fitted omega for the generating model")
+    p.add_argument("--seed", type=int, default=0)
     return parser
 
 
@@ -87,16 +125,38 @@ def main(argv=None) -> int:
               f"with capped optimizers on these inputs")
         return rc
 
-    from hyphy_tpu_torch.methods import fel
-
     tree = _read_tree_arg(args.tree)
     t0 = time.time()
-    result = fel.run(args.alignment, args.code, tree, args.branches,
-                     srv=_bool(args.srv), pvalue=args.pvalue,
-                     resample=args.resample,
-                     multiple_hits=args.multiple_hits,
-                     site_multihit=args.site_multihit,
-                     ci=_bool(args.ci))
+    if args.method == "fel":
+        from hyphy_tpu_torch.methods import fel
+
+        result = fel.run(args.alignment, args.code, tree, args.branches,
+                         srv=_bool(args.srv), pvalue=args.pvalue,
+                         resample=args.resample,
+                         multiple_hits=args.multiple_hits,
+                         site_multihit=args.site_multihit,
+                         ci=_bool(args.ci))
+    elif args.method == "slac":
+        from hyphy_tpu_torch.methods import slac
+
+        result = slac.run(args.alignment, args.code, tree, args.branches,
+                          pvalue=args.pvalue, samples=args.samples)
+    elif args.method == "meme":
+        from hyphy_tpu_torch.methods import meme
+
+        result = meme.run(args.alignment, args.code, tree, args.branches,
+                          pvalue=args.pvalue, rate_classes=args.rates,
+                          resample=args.resample,
+                          multiple_hits=args.multiple_hits,
+                          site_multihit=args.site_multihit)
+    else:
+        from hyphy_tpu_torch.methods import simulate
+
+        result = simulate.run(args.alignment, args.code, tree, args.branches,
+                              replicates=args.replicates, sites=args.sites,
+                              omega=args.sim_omega, seed=args.seed,
+                              output=(args.output.rsplit(".json", 1)[0]
+                                      if args.output else None))
     out_path = args.output or f"{args.alignment}.{args.method.upper()}.json"
     result.json.setdefault("timers", {})["Total time"] = {
         "timer": round(time.time() - t0, 2), "order": 0,

@@ -3,11 +3,13 @@
 Counterpart of the gene path of ``hyphy_tpu/ops/pruning.py``: the exact-
 width unrolled variant (``_site_log_likelihoods_unrolled``), with every
 level's sibling product going through the K1 kernel
-(:func:`hyphy_tpu_torch.ops.level_products.level_products`); and the two
-per-site routes FEL fits sites with, ``single_site_log_likelihood_taylor``
-and ``single_site_log_likelihood_spectral``, batched over sites, on the
-same schedule.  The padded ``lax.scan`` variant (``schedule_pad``) and the
-mixture modes are not ported yet.
+(:func:`hyphy_tpu_torch.ops.level_products.level_products`); and the
+per-site routes FEL and MEME fit sites with, batched over sites, on the
+same schedule: ``single_site_log_likelihood_taylor`` (with its
+``mix_weights`` mode), ``single_site_log_likelihood_spectral`` and
+``single_site_log_likelihood_spectral_mixture``.  The padded ``lax.scan``
+variant (``schedule_pad``) and ``mixture_site_log_likelihoods`` are not
+ported yet.
 
 Numerics kept from the reference, which make fp32 usable on deep trees:
 the identity propagator at the scratch index, max-renormalisation per
@@ -52,6 +54,13 @@ _SCRATCH = -1
 # children multiplied before a renormalisation; wider nodes are padded to a
 # multiple of it
 _CHUNK = 4
+# child rows a per-site route multiplies at once, at least: a narrower level
+# is padded with the scratch row (identity messages, dropped), because for
+# so few rows the card's cuBLAS picks its fp32 kernel by the number of sites
+# (on the H100 a 2-child level's rows change in their last bits between 128
+# and 4719 sites), and a site's lnL must not depend on the sites that share
+# its batch: the chunks of a solve, the fused Nelder-Mead probes
+_MIN_ROWS = 20
 
 
 class LevelPlan(NamedTuple):
@@ -65,6 +74,10 @@ class LevelPlan(NamedTuple):
     perm: "torch.Tensor | None"
     child_branch: torch.Tensor   # [W, K] int64 propagator row per child
     child_storage: torch.Tensor  # [W, K] int64 storage slot per child
+    # the per-site routes' flat child rows: storage slots and branches,
+    # padded with the scratch row to at least _MIN_ROWS
+    site_slots: torch.Tensor
+    site_branches: torch.Tensor
 
 
 class PruningData(NamedTuple):
@@ -79,6 +92,7 @@ class PruningData(NamedTuple):
     # arity classes (see :func:`_arity_groups`)
     ulevels: tuple
     plans: Tuple[LevelPlan, ...]   # the same schedule as per-level gathers
+    node_slots: np.ndarray         # [n_nodes] storage slot of each node id
 
 
 def _arity_groups(tree: Tree, lv: np.ndarray) -> List[np.ndarray]:
@@ -121,14 +135,14 @@ def build_pruning_data(tree: Tree, device) -> PruningData:
                 child_storage[slot, k] = storage[c]
                 child_branch[slot, k] = c
         levels.append((next_slot, child_storage, child_branch))
-        plans.append(_level_plan(child_storage, child_branch, source_of, row_of, device))
+        plans.append(_level_plan(child_storage, child_branch, source_of, row_of, n_nodes, device))
         source_of[next_slot : next_slot + w] = len(levels)
         row_of[next_slot : next_slot + w] = np.arange(w)
         next_slot += w
-    return PruningData(n_nodes, n_leaves, tuple(levels), tuple(plans))
+    return PruningData(n_nodes, n_leaves, tuple(levels), tuple(plans), storage[:n_nodes])
 
 
-def _level_plan(child_storage, child_branch, source_of, row_of, device) -> LevelPlan:
+def _level_plan(child_storage, child_branch, source_of, row_of, n_nodes, device) -> LevelPlan:
     flat = child_storage.reshape(-1)
     src = source_of[flat]
     pieces, order = [], []
@@ -143,7 +157,11 @@ def _level_plan(child_storage, child_branch, source_of, row_of, device) -> Level
         perm = torch.as_tensor(np.argsort(order, kind="stable"), device=device)
     branch = torch.as_tensor(child_branch.astype(np.int64), device=device)
     slots = torch.as_tensor(child_storage.astype(np.int64), device=device)
-    return LevelPlan(pieces, perm, branch, slots)
+    pad = np.full(max(_MIN_ROWS - len(flat), 0), n_nodes, dtype=np.int64)
+    site_slots = torch.as_tensor(np.concatenate([flat, pad]).astype(np.int64), device=device)
+    site_branches = torch.as_tensor(
+        np.concatenate([child_branch.reshape(-1), pad]).astype(np.int64), device=device)
+    return LevelPlan(pieces, perm, branch, slots, site_slots, site_branches)
 
 
 def site_log_likelihoods(
@@ -208,6 +226,35 @@ def total_log_likelihood(site_loglik: torch.Tensor, weights: torch.Tensor) -> to
     return torch.dot(site_loglik, weights)
 
 
+def _halving_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over axis ``dim`` by pairwise halving (zero-padded to a power of
+    two): elementwise adds only, so one site's sum does not depend on how
+    many sites share the call.  A reduction kernel's order does on the card
+    (a level's log-scale sum over 249 nodes changed in its last bits
+    between 997 and 10692 sites on the H100), and a site's lnL must not
+    depend on its batch: the chunks of a solve, the fused Nelder-Mead
+    probes."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
+
+
+def _sibling_product(terms: torch.Tensor, dim: int) -> torch.Tensor:
+    """Product over axis ``dim`` (at most ``_CHUNK`` siblings), one
+    elementwise multiply at a time, for the same reason as
+    :func:`_halving_sum`."""
+    prod = terms.select(dim, 0)
+    for k in range(1, terms.shape[dim]):
+        prod = prod * terms.select(dim, k)
+    return prod
+
+
 def _chunked_product(terms: torch.Tensor, dim: int):
     """Product over axis ``dim`` of ``terms`` (chunk products of a wide
     node's children, states on the last axis) without underflow: every
@@ -221,7 +268,7 @@ def _chunked_product(terms: torch.Tensor, dim: int):
         mx = torch.amax(terms, dim=-1, keepdim=True)
         mx = torch.where(mx > 0, mx, one)
         terms = terms / mx
-        logs = logs + torch.sum(torch.log(mx[..., 0]), dim=dim)
+        logs = logs + _halving_sum(torch.log(mx[..., 0]), dim)
         m = terms.shape[dim]
         if m == 1:
             return terms.squeeze(dim), logs
@@ -266,21 +313,88 @@ def _renormalise(msg, w, karity, log_scale):
     nodes wider than ``_CHUNK`` through :func:`_chunked_product`."""
     n_sites, _, states = msg.shape
     if karity <= _CHUNK:
-        prod = torch.prod(msg.reshape(n_sites, w, karity, states), dim=2)
+        prod = _sibling_product(msg.reshape(n_sites, w, karity, states), 2)
     else:
-        chunks = torch.prod(msg.reshape(n_sites, w, karity // _CHUNK, _CHUNK, states), dim=3)
+        chunks = _sibling_product(msg.reshape(n_sites, w, karity // _CHUNK, _CHUNK, states), 3)
         prod, logs = _chunked_product(chunks, 2)
-        log_scale = log_scale + torch.sum(logs, dim=1)
+        log_scale = log_scale + _halving_sum(logs)
     mx = torch.amax(prod, dim=-1, keepdim=True)
     mx = torch.where(mx > 0, mx, 1.0)
-    return prod / mx, log_scale + torch.sum(torch.log(mx[..., 0]), dim=1)
+    return prod / mx, log_scale + _halving_sum(torch.log(mx[..., 0]))
 
 
 def _root_log_likelihood(buf, n_nodes, root_freqs, log_scale):
     dtype = buf.dtype
-    root_like = buf[:, n_nodes - 1] @ root_freqs.to(dtype)
+    # not a matrix-vector product: the BLAS's fp32 kernel for that depends
+    # on the number of sites (see :func:`_halving_sum`)
+    root_like = _halving_sum(buf[:, n_nodes - 1] * root_freqs.to(dtype))
     tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=buf.device)
     return torch.log(torch.maximum(root_like, tiny)) + log_scale
+
+
+class _TaylorAction:
+    """One family's Taylor vector action on a level's child vectors, as
+    the JAX package's ``action``: squaring-ladder steps by the bits of
+    ``j``, then the Horner recurrence, one ``bmm`` (+ one ``addcmul``) per
+    step on ``[N, F, S]``."""
+
+    def __init__(self, qn, m2p, n_terms, dtype, device):
+        self.qn_t = qn.transpose(-1, -2).contiguous()
+        self.m2p_t = m2p.transpose(-1, -2).contiguous()
+        self.n_terms, self.n_ladder = n_terms, m2p.shape[2]
+        self.ks = torch.arange(n_terms, 0, -1, dtype=dtype, device=device)   # Horner order
+        self.shifts = torch.arange(self.n_ladder, device=device)
+
+    def factors(self, r_level, j_level, j_max_level):
+        """Horner coefficients ``r_b / k`` ``[N, F, terms]``, the ladder bit
+        masks ``[N, F, bits]`` and their count: as many bits as the level's
+        largest ``j`` over the whole batch (extra steps are no-ops)."""
+        bits = min(self.n_ladder, int(j_max_level.max()).bit_length())
+        bit = None
+        if bits:
+            bit = ((j_level[..., None] >> self.shifts[:bits]) & 1).to(torch.bool)
+        return r_level[..., None] / self.ks, bit, bits
+
+    def __call__(self, v, coef, bit, bits, g):
+        for k in range(bits):
+            v = torch.where(bit[..., k : k + 1], torch.bmm(v, self.m2p_t[:, g, k]), v)
+        acc = v
+        for i in range(self.n_terms):
+            acc = torch.addcmul(v, coef[..., i : i + 1], torch.bmm(acc, self.qn_t[:, g]))
+        return acc
+
+
+def _taylor_mixture(qn, m2p, r, j, n_terms, leaf_vectors, root_freqs, data, mix_weights):
+    """The ``mix_weights`` mode of :func:`single_site_log_likelihood_taylor`."""
+    n_nodes = data.n_nodes
+    n_sites = leaf_vectors.shape[0]
+    dtype, device = leaf_vectors.dtype, leaf_vectors.device
+    n_fam = m2p.shape[1]
+    n_b = mix_weights.shape[1]
+    # [N, G, n_nodes + 1]; the root's and the scratch rows mix to the
+    # identity: full weight on family 0 with r = 0, j = 0
+    r_all = _per_branch(r.to(dtype).transpose(1, 2), n_nodes)
+    j_all = _per_branch(j.to(torch.int64).transpose(1, 2), n_nodes)
+    w_all = _per_branch(mix_weights.to(dtype).transpose(1, 2), n_nodes)
+    w_all[:, 0, n_b:] = 1.0
+    j_max = j_all.amax(dim=0).cpu().numpy()                            # [G, n_nodes + 1]
+    action = _TaylorAction(qn, m2p, n_terms, dtype, device)
+    buf = _site_buffer(leaf_vectors, n_nodes)
+    log_scale = torch.zeros((n_sites,), dtype=dtype, device=device)
+    for (offset, _, child_branch), plan in zip(data.ulevels, data.plans):
+        w, karity = plan.child_storage.shape
+        flat_b = plan.site_branches
+        v = buf[:, plan.site_slots]                                    # [N, F', S]
+        msg = None
+        for g in range(n_fam):
+            coef, bit, bits = action.factors(r_all[:, g, flat_b], j_all[:, g, flat_b],
+                                             j_max[g, child_branch.reshape(-1)])
+            term = w_all[:, g, flat_b, None] * action(v, coef, bit, bits, g)
+            msg = term if msg is None else msg + term
+        msg = torch.clamp_min(msg[:, : w * karity], 0.0)
+        prod, log_scale = _renormalise(msg, w, karity, log_scale)
+        buf[:, offset : offset + w] = prod
+    return _root_log_likelihood(buf, n_nodes, root_freqs, log_scale)
 
 
 def single_site_log_likelihood_taylor(
@@ -293,6 +407,7 @@ def single_site_log_likelihood_taylor(
     leaf_vectors: torch.Tensor,    # [N, n_leaves, S] the sites' leaf partials
     root_freqs: torch.Tensor,
     data: PruningData,
+    mix_weights: "torch.Tensor | None" = None,  # [N, n_branches, G]
 ) -> torch.Tensor:
     """Per-site lnL ``[N]`` with each branch's propagator applied as a
     VECTOR action from :func:`ops.expm.taylor_action_factors` (the JAX
@@ -300,6 +415,13 @@ def single_site_log_likelihood_taylor(
     ``j_b``, then the Horner recurrence ``acc <- v + (r_b/k) qn_g acc``.
     Each branch group's action runs on every child of a level and the result
     is selected per branch, as in the reference.
+
+    Mixture mode (``mix_weights``, MEME's branch-site mixture): branch
+    ``b`` of site ``n`` has ``P = sum_g w[n,b,g] expm(t_b Q_{n,g})``; then
+    ``r`` and ``j`` are ``[N, n_branches, G]``, one per (branch, family),
+    each family walks its own ladder bits, and the message is the weighted
+    sum of every family's action (``group_of_branch`` is unused).  Padded
+    children act with family 0 at r = 0, j = 0: the identity.
 
     The ladder walks as many bits as the largest ``j`` of the level's
     branches over the whole batch sets, the trip count of the reference's
@@ -315,38 +437,26 @@ def single_site_log_likelihood_taylor(
     n_sites, _, states = leaf_vectors.shape
     dtype, device = leaf_vectors.dtype, leaf_vectors.device
     n_groups, n_ladder = m2p.shape[1], m2p.shape[2]
+    if mix_weights is not None:
+        return _taylor_mixture(qn, m2p, r, j, n_terms, leaf_vectors, root_freqs, data,
+                               mix_weights)
     r_all = _per_branch(r.to(dtype), n_nodes)                          # [N, n_nodes + 1]
     j_all = _per_branch(j.to(torch.int64), n_nodes)
     g_all = _per_branch(group_of_branch.to(torch.int64), n_nodes)     # [n_nodes + 1]
     j_max = j_all.amax(dim=0).cpu().numpy()
-    qn_t = qn.transpose(-1, -2).contiguous()
-    m2p_t = m2p.transpose(-1, -2).contiguous()
-    ks = torch.arange(n_terms, 0, -1, dtype=dtype, device=device)      # Horner order
-    shifts = torch.arange(n_ladder, device=device)
-
-    def action(v, coef, bit, bits, g):
-        for k in range(bits):
-            v = torch.where(bit[..., k : k + 1], torch.bmm(v, m2p_t[:, g, k]), v)
-        acc = v
-        for i in range(n_terms):
-            acc = torch.addcmul(v, coef[..., i : i + 1], torch.bmm(acc, qn_t[:, g]))
-        return acc
-
+    action = _TaylorAction(qn, m2p, n_terms, dtype, device)
     buf = _site_buffer(leaf_vectors, n_nodes)
     log_scale = torch.zeros((n_sites,), dtype=buf.dtype, device=buf.device)
     for (offset, _, child_branch), plan in zip(data.ulevels, data.plans):
         w, karity = plan.child_storage.shape
-        flat_b = plan.child_branch.reshape(-1)
-        v = buf[:, plan.child_storage.reshape(-1)]                     # [N, F, S]
-        coef = r_all[:, flat_b, None] / ks                             # [N, F, terms]
-        bits = min(n_ladder, int(j_max[child_branch.reshape(-1)].max()).bit_length())
-        bit = None
-        if bits:
-            bit = ((j_all[:, flat_b, None] >> shifts[:bits]) & 1).to(torch.bool)  # [N, F, bits]
+        flat_b = plan.site_branches
+        v = buf[:, plan.site_slots]                                    # [N, F', S]
+        coef, bit, bits = action.factors(r_all[:, flat_b], j_all[:, flat_b],
+                                         j_max[child_branch.reshape(-1)])
         msg = action(v, coef, bit, bits, 0)
         for g in range(1, n_groups):
             msg = torch.where((g_all[flat_b] == g)[:, None], action(v, coef, bit, bits, g), msg)
-        msg = torch.clamp_min(msg, 0.0)
+        msg = torch.clamp_min(msg[:, : w * karity], 0.0)
         prod, log_scale = _renormalise(msg, w, karity, log_scale)
         buf[:, offset : offset + w] = prod
     return _root_log_likelihood(buf, n_nodes, root_freqs, log_scale)
@@ -389,12 +499,60 @@ def single_site_log_likelihood_spectral(
     log_scale = torch.zeros((n_sites,), dtype=buf.dtype, device=buf.device)
     for (offset, _, _), plan in zip(data.ulevels, data.plans):
         w, karity = plan.child_storage.shape
-        flat_b = plan.child_branch.reshape(-1)
-        cc = buf[:, plan.child_storage.reshape(-1)]                    # [N, F, S]
+        flat_b = plan.site_branches
+        cc = buf[:, plan.site_slots]                                   # [N, F', S]
         tb = t_all[flat_b]
         msg = action(cc, tb, 0)
         for g in range(1, n_groups):
             msg = torch.where((g_all[flat_b] == g)[:, None], action(cc, tb, g), msg)
-        prod, log_scale = _renormalise(msg, w, karity, log_scale)
+        prod, log_scale = _renormalise(msg[:, : w * karity], w, karity, log_scale)
+        buf[:, offset : offset + w] = prod
+    return _root_log_likelihood(buf, n_nodes, root_freqs, log_scale)
+
+
+def single_site_log_likelihood_spectral_mixture(
+    left: torch.Tensor,            # [N, M, S, S] spectral factors per site, family
+    lam: torch.Tensor,             # [N, M, S]
+    right: torch.Tensor,           # [N, M, S, S]
+    weights: torch.Tensor,         # [N, n_branches, M] mixture weight per family
+    times: torch.Tensor,           # [n_branches] per-branch expm times
+    leaf_vectors: torch.Tensor,    # [N, n_leaves, S]
+    root_freqs: torch.Tensor,
+    data: PruningData,
+) -> torch.Tensor:
+    """Per-site lnL ``[N]`` when each branch's propagator is a mixture of
+    exponentials over M generator families, ``P_{n,b} = sum_m w[n,b,m]
+    expm(t_b Q_{n,m})`` (MEME's branch-site mixture, reference
+    tree.cpp:2999-3008), with the spectral factors acting on CLV vectors.
+
+    The JAX package takes (family index, weight) pairs per branch component
+    and makes them the dense ``[branches, M]`` table it works with; here the
+    caller passes that table per site.  Every family's message is computed
+    for every child and summed with the weights; padded children take
+    family 0 at time 0, the identity.
+    """
+    n_nodes = data.n_nodes
+    n_sites = leaf_vectors.shape[0]
+    dtype = leaf_vectors.dtype
+    n_fam, n_b = left.shape[1], weights.shape[1]
+    t_all = _per_branch(times.to(dtype), n_nodes)                       # [n_nodes + 1]
+    w_all = _per_branch(weights.to(dtype).transpose(1, 2), n_nodes)      # [N, M, n_nodes + 1]
+    w_all[:, 0, n_b:] = 1.0
+    left_t, right_t = left.transpose(-1, -2), right.transpose(-1, -2)
+
+    buf = _site_buffer(leaf_vectors, n_nodes)
+    log_scale = torch.zeros((n_sites,), dtype=buf.dtype, device=buf.device)
+    for (offset, _, _), plan in zip(data.ulevels, data.plans):
+        w, karity = plan.child_storage.shape
+        flat_b = plan.site_branches
+        cc = buf[:, plan.site_slots]                                   # [N, F', S]
+        tb = t_all[flat_b]
+        msg = None
+        for m in range(n_fam):
+            el = torch.exp(lam[:, m, None, :] * tb[None, :, None])     # [N, F, S]
+            act = torch.bmm(torch.bmm(cc, right_t[:, m]) * el, left_t[:, m])
+            term = w_all[:, m, flat_b, None] * act
+            msg = term if msg is None else msg + term
+        prod, log_scale = _renormalise(msg[:, : w * karity], w, karity, log_scale)
         buf[:, offset : offset + w] = prod
     return _root_log_likelihood(buf, n_nodes, root_freqs, log_scale)

@@ -9,7 +9,7 @@ ported methods and is not ported.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -62,6 +62,7 @@ def chunked_site_solve(
     n_items: int,
     bytes_per_item: float,
     device,
+    chunk: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run ``solver(idx [n]) -> {k: [n, ...]}`` over consecutive chunks of
     ``range(n_items)`` and join the outputs along axis 0.
@@ -71,8 +72,10 @@ def chunked_site_solve(
     :func:`site_chunk` items.  A batched per-site solver
     whose items are independent — grid starts and the Nelder-Mead, which
     freezes converged items by mask — gives every item the same result
-    whatever the chunking."""
-    chunk = site_chunk(n_items, bytes_per_item, device)
+    whatever the chunking.  ``chunk`` forces the items per chunk (to hold a
+    split against one batch)."""
+    if chunk is None:
+        chunk = site_chunk(n_items, bytes_per_item, device)
     parts = [
         solver(torch.arange(lo, min(lo + chunk, n_items), device=device))
         for lo in range(0, n_items, chunk)

@@ -16,15 +16,22 @@ in one batch:
   * converged rows are frozen (masked updates), so their values are
     bit-stable once done.
 
+Fused probes (the JAX package's opt-in, ``HYPHY_TPU_NM_FUSED=1``, taken
+only on the card): reflection, expansion, contraction and fallback go in
+ONE batched call of 4N items — one evaluation's launches per iteration
+instead of three, at 4x its peak memory.  The objective's items are
+independent, so every row takes the same decisions and values as with the
+three sequential probes.
+
 Parameters are optimized in logit-transformed (unbounded) space.  The
 objective is batched: ``objective(idx [N], params {k: [N, ...]}) -> [N]``,
-where the JAX package ``vmap``s a per-item objective.  The JAX package's
-fused four-probe body (``HYPHY_TPU_NM_FUSED``) is not ported.
+where the JAX package ``vmap``s a per-item objective.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import os
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,14 +72,22 @@ def _finite_or_minus_inf(v: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(v), v, torch.full_like(v, -torch.inf))
 
 
+def fused_probes(device) -> bool:
+    """The JAX package's rule for the fused body: opted in by
+    ``HYPHY_TPU_NM_FUSED=1``, and only off the CPU."""
+    return torch.device(device).type == "cuda" and os.environ.get("HYPHY_TPU_NM_FUSED") == "1"
+
+
 def _batched_nelder_mead(
-    f_batch: Callable[[torch.Tensor], torch.Tensor],  # [N, n] -> [N]
+    f_batch: Callable[[torch.Tensor], torch.Tensor],  # [m*N, n] -> [m*N]
     u0: torch.Tensor,                                 # [N, n]
     max_iterations: int,
     tol: float,
     initial_step: float,
+    fused: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Maximize ``f_batch`` per row; returns (u_best [N, n], value [N])."""
+    """Maximize ``f_batch`` per row; returns (u_best [N, n], value [N]).
+    ``fused``: the four probes of an iteration in one call of 4N rows."""
     n = u0.shape[1]
     offsets = torch.cat([
         torch.zeros((1, n), dtype=u0.dtype, device=u0.device),
@@ -100,11 +115,17 @@ def _batched_nelder_mead(
         expanded = centroid + 2.0 * (centroid - worst)
         contracted = centroid - 0.5 * (centroid - worst)
         fallback = best + 0.5 * (worst - best)                      # rank-1 shrink
-        f_r = f_batch(reflected)
-        want_expand = f_r > values[:, 0]
+        if fused:
+            f_r, f_e, f_c, f_s = f_batch(
+                torch.cat([reflected, expanded, contracted, fallback])).chunk(4)
+            want_expand = f_r > values[:, 0]
+            f_2 = torch.where(want_expand, f_e, f_c)
+        else:
+            f_r = f_batch(reflected)
+            want_expand = f_r > values[:, 0]
+            f_2 = f_batch(torch.where(want_expand[:, None], expanded, contracted))
+            f_s = f_batch(fallback)
         second = torch.where(want_expand[:, None], expanded, contracted)
-        f_2 = f_batch(second)
-        f_s = f_batch(fallback)
 
         minus_inf = torch.full_like(f_2, -torch.inf)
         f_e = torch.where(want_expand, f_2, minus_inf)
@@ -165,6 +186,7 @@ def vmapped_nelder_mead(
     max_iterations: int = 200,
     tol: float = 1e-6,
     initial_step: float = 0.5,
+    fused: Optional[bool] = None,
 ):
     """Per-item Nelder-Mead of the batched ``objective(idx, params)``.
 
@@ -173,19 +195,25 @@ def vmapped_nelder_mead(
     ...]}`` fp64, values ``[N]`` in the objective's dtype).  All items
     iterate in lockstep; the loop exits as soon as EVERY item's simplex
     value-spread is <= ``tol`` (converged items are frozen while stragglers
-    finish).
+    finish).  ``fused``: the four probes in one call per iteration, with
+    ``idx`` repeated (None: :func:`fused_probes` of ``idx``'s device).
     """
     if isinstance(idx, int):
         idx = torch.arange(idx)
+    if fused is None:
+        fused = fused_probes(idx.device)
     to_vec, to_dict = _pack(specs)
 
     def f_batch(u_mat: torch.Tensor) -> torch.Tensor:
-        return _finite_or_minus_inf(objective(idx, to_bounded(to_dict(u_mat), specs)))
+        # [m * N, n]: the probes stacked over the item batch
+        reps = u_mat.shape[0] // idx.shape[0]
+        idx_m = idx.repeat(reps) if reps > 1 else idx
+        return _finite_or_minus_inf(objective(idx_m, to_bounded(to_dict(u_mat), specs)))
 
     start = clip_to_bounds({
         k: torch.as_tensor(init_batch[k], dtype=torch.float64, device=idx.device)
         for k in specs
     }, specs)
     u_best, values = _batched_nelder_mead(
-        f_batch, to_vec(to_unbounded(start, specs)), max_iterations, tol, initial_step)
+        f_batch, to_vec(to_unbounded(start, specs)), max_iterations, tol, initial_step, fused)
     return to_bounded(to_dict(u_best), specs), values

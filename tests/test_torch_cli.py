@@ -38,14 +38,19 @@ def tiny(tmp_path_factory):
     return {"fasta": str(fa), "tree": str(tree), "dir": d}
 
 
-def _fel_flags(parser):
-    sub = parser._subparsers._group_actions[0].choices["fel"]
+def _fel_flags(parser, method="fel"):
+    sub = parser._subparsers._group_actions[0].choices[method]
     return sorted((a.dest, tuple(a.option_strings), a.default, tuple(a.choices or ()))
                   for a in sub._actions)
 
 
 def test_fel_flags_match_the_jax_cli():
     assert _fel_flags(cli.build_parser()) == _fel_flags(jcli.build_parser())
+
+
+@pytest.mark.parametrize("method", ["slac", "meme", "simulate"])
+def test_method_flags_match_the_jax_cli(method):
+    assert _fel_flags(cli.build_parser(), method) == _fel_flags(jcli.build_parser(), method)
 
 
 def test_fel_cli_json_matches_the_jax_cli(tiny):

@@ -25,10 +25,13 @@ print("LEAKED", leaked)
 print("LOADED", sorted(m for m in sys.modules if m.startswith("hyphy_tpu_torch.")))
 """
 
-# modules added with FEL's options and CHARSET partitions, which the walk
-# above must reach
+# modules added with FEL's options and CHARSET partitions, and with SLAC,
+# MEME and simulate, which the walk above must reach
 _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batched",
-                "hyphy_tpu_torch.methods.fel", "hyphy_tpu_torch.io.json_out"]
+                "hyphy_tpu_torch.methods.fel", "hyphy_tpu_torch.io.json_out",
+                "hyphy_tpu_torch.ops.ancestral", "hyphy_tpu_torch.methods.counting",
+                "hyphy_tpu_torch.methods.slac", "hyphy_tpu_torch.methods.meme",
+                "hyphy_tpu_torch.methods.simulate", "hyphy_tpu_torch.utils.synth"]
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -104,3 +107,32 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     # asking for the CPU is the only way onto it
     lf = LikelihoodFunction([Partition(filt, tree, model)], device="cpu")
     assert lf.device.type == "cpu" and lf.dtype == torch.float64
+
+
+@pytest.mark.parametrize("method", ["slac", "meme", "simulate"])
+def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path, method):
+    """SLAC, MEME and simulate, called as functions and through the CLI:
+    they raise without CUDA, and run on the CPU only when asked."""
+    import importlib
+
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
+
+    module = importlib.import_module(f"hyphy_tpu_torch.methods.{method}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(settings, "device", "cuda")
+    monkeypatch.setenv("HYPHY_TPU_PROGRESS", "0")
+    aln = synthetic_codon_alignment(4, 5, seed=1)
+    fasta = tmp_path / "a.fasta"
+    fasta.write_text("".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
+    newick = random_tree_newick(4, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.run(str(fasta), tree=newick)
+    out = tmp_path / "a.json"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main([method, "--alignment", str(fasta), "--tree", newick, "--output", str(out)])
+    assert not out.exists()
+    # asking for the CPU is the only way onto it
+    result = module.run(str(fasta), tree=newick, device="cpu")
+    assert "fits" in result.json

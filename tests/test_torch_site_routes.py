@@ -310,3 +310,68 @@ def test_routes_on_a_star_tree_do_not_underflow():
         left, lam, right, torch.tensor(pr["times"]), _groups(pr, 1),
         torch.tensor(pr["leaves"]), torch.tensor(pi), pr["tdata"]).numpy()
     np.testing.assert_allclose(spectral, _jax_spectral(pr, 1), rtol=0, atol=1e-10)
+
+
+# -- the fused four-probe body -------------------------------------------------
+
+def test_fused_probes_equal_sequential():
+    """The JAX package's fused body (all four probes in one 4N-item call)
+    gives every item the decisions and values of the three sequential
+    probes: bit for bit, in a quarter of the objective calls per iteration
+    (plus the n + 1 calls of the initial simplex)."""
+    n_items = 16
+    centres = _centres(n_items)
+    starts = {k: torch.full((n_items,), v) for k, v in zip(_KEYS, (0.3, 2.0, 7.0))}
+    out = {}
+    for fused in (False, True):
+        calls = []
+        out[fused] = nelder_mead.vmapped_nelder_mead(
+            _torch_objective(centres, calls), _specs(ParamSpec), starts, n_items,
+            max_iterations=40, fused=fused)
+        assert set(calls[len(_KEYS) + 1:]) == {4 * n_items if fused else n_items}
+        out[fused] += (len(calls) - len(_KEYS) - 1,)
+    assert out[False][2] == 3 * out[True][2] == 3 * 40
+    for k in _KEYS:
+        assert torch.equal(out[True][0][k], out[False][0][k]), k
+    assert torch.equal(out[True][1], out[False][1])
+
+
+def test_fused_probes_on_a_site_objective(site_problem):
+    """The same on a per-site Taylor-route objective, whose batch sets the
+    ladder's trip count: the fused batch walks as many bits as its largest
+    time needs, and the extra steps are no-ops for the others."""
+    pr = site_problem
+    times = torch.tensor(pr["times"])
+    leaves = torch.tensor(pr["leaves"])
+    q_syn = torch.tensor(pr["q"][:, 0])
+    q_non = torch.tensor(pr["q"][:, 1])
+
+    def objective(idx, p):
+        from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
+
+        m = fill_diagonal_from_rows(p["alpha"][:, None, None] * q_syn[idx]
+                                    + p["beta_test"][:, None, None] * q_non[idx])[:, None]
+        qn, m2p, r, j = expm.taylor_action_factors(m, times)
+        return pruning.single_site_log_likelihood_taylor(
+            qn, m2p, r[:, 0], j[:, 0], torch.zeros(times.shape[0], dtype=torch.int64),
+            expm.taylor_action_terms(torch.float64), leaves[idx], torch.tensor(pr["pi"]),
+            pr["tdata"])
+
+    specs = {k: ParamSpec(init=1.0, lower=0.0, upper=10000.0) for k in ("alpha", "beta_test")}
+    starts = {"alpha": torch.full((8,), 0.5), "beta_test": torch.full((8,), 2.0)}
+    seq = nelder_mead.vmapped_nelder_mead(objective, specs, starts, 8, max_iterations=12,
+                                          fused=False)
+    fused = nelder_mead.vmapped_nelder_mead(objective, specs, starts, 8, max_iterations=12,
+                                            fused=True)
+    for k in specs:
+        np.testing.assert_array_equal(fused[0][k].numpy(), seq[0][k].numpy(), err_msg=k)
+    np.testing.assert_array_equal(fused[1].numpy(), seq[1].numpy())
+
+
+def test_fused_probes_opt_in(monkeypatch):
+    """As in the JAX package: ``HYPHY_TPU_NM_FUSED=1``, and only off the CPU."""
+    monkeypatch.delenv("HYPHY_TPU_NM_FUSED", raising=False)
+    assert not nelder_mead.fused_probes("cuda")
+    monkeypatch.setenv("HYPHY_TPU_NM_FUSED", "1")
+    assert nelder_mead.fused_probes("cuda") and not nelder_mead.fused_probes("cpu")
+

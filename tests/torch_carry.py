@@ -35,13 +35,17 @@ def carried_gtr(jgtr):
 def carried_mg94(jmg, md):
     """The JAX run's (joint) MG94 fit as the port's, on the port's
     (collapsed) data: each partition's model rebuilt from the JAX fit's
-    frequencies, branch rates and multiple-hit option."""
+    frequencies, branch rates (free, or its scaler times the GTR lengths
+    when the fit kept them proportional, as SLAC's does) and multiple-hit
+    option."""
     parts = []
     for m, data in zip(jmg.parts, md.parts):
+        free = m.model.free_lengths
         model = MG94xREVPartitionedOmega(
             data.genetic_code, m.corner_freqs, m.codon_freqs,
-            nuc_lengths=np.array(m.alphas), branch_groups=data.branch_groups,
-            n_groups=m.model.n_groups, free_lengths=True,
+            nuc_lengths=np.array(m.alphas if free else m.model.nuc_lengths),
+            branch_groups=data.branch_groups,
+            n_groups=m.model.n_groups, free_lengths=free,
             multiple_hits=m.model.multiple_hits, device="cpu")
         parts.append(tcommon.MG94Fit(
             loglik=m.loglik, params=_params(m.params),
@@ -72,7 +76,7 @@ def carry_into(monkeypatch, seen):
                         lambda md, precision=1e-5: carried_gtr(seen["fit_gtr_multi"]))
     monkeypatch.setattr(
         tcommon, "fit_partitioned_mg94_multi",
-        lambda md, gtr, precision=1e-5, multiple_hits="None":
+        lambda md, gtr, precision=1e-5, **options:
             carried_mg94(seen["fit_partitioned_mg94_multi"], md))
 
 
