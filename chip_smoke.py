@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``hyphy_tpu_torch``) on one card.
 
-    python3 chip_smoke.py               # every phase; FEL as `warmup fel` (capped fits)
-    python3 chip_smoke.py --full-fit    # the same, with FEL's fits run to convergence
+    python3 chip_smoke.py                    # every phase; FEL as `warmup fel` (capped fits)
+    python3 chip_smoke.py --full-fit         # the same, with FEL's fits run to convergence
+    python3 chip_smoke.py --precision-check  # phases 1-3, then FEL's fp32 vs fp64 site calls
 
 Run from the root of a checkout; it builds the CUDA kernels from the
 checkout's sources.  Phases, each of which fails the run if it fails:
@@ -42,9 +43,10 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      objective with per-site delta/psi, card against host in fp64 Taylor;
   8. ``warmup fel --ci Yes --resample 10`` on 1000 taxa x 128 codons
      (codons cut so that the profile's ~60 batched fits and the bootstrap's
-     host sampling fit the run; capped under ``--full-fit`` too): seconds
-     of the CI and of the bootstrap apart, LB <= MLE <= UB, bootstrap p in
-     multiples of 1/11;
+     host sampling fit the run; capped under ``--full-fit`` too), with the
+     fused Nelder-Mead probes (``HYPHY_TPU_NM_FUSED=1``: at 128 sites an
+     evaluation is host launch time): seconds of the CI and of the
+     bootstrap apart, LB <= MLE <= UB, bootstrap p in multiples of 1/11;
   (after phase 6) the Nelder-Mead's fused four-probe body against its
      sequential probes on phase 6's objective at 128, 512 and 2048 sites:
      ms and launches per iteration, peak memory, results equal bit for bit;
@@ -64,10 +66,42 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      profiled; the mixture site lnL card vs host (fp64 Taylor, 1e-9) and
      fp32 vs fp64 (0.03); the planted codons at p <= 0.1; the EBFs of the
      sites one chunk holds, and of 64 sites, held bit for bit between the
-     chunks free memory gives and forced chunks of 997 items.
+     chunks free memory gives and forced chunks of 997 items;
+ 12. FUBAR at full width on phase 9's alignment, ``warmup fubar --grid
+     20``: seconds per stage (load, GTR, the two grid passes, the
+     posterior), grid points per chunk, K1 launches, peak memory; pass 2's
+     fp32 Taylor grid against fp64 spectral on four interior grid points
+     (0.03 per pattern), two points folded into one call against each alone
+     (equal) and against the one-set pruning (1e-5 relative), the posterior
+     summing to 1, 7 of 9 planted codons at P[beta > alpha] >= 0.9;
+ 13. B-STILL on phase 9's alignment cut to 512 codons, ``warmup b-still
+     --grid 20``: seconds, K1 launches, the JSON, finite EBFs;
+ 14. contrast-FEL at full width (G = 3) on a second alignment: two
+     disjoint ~250-leaf clades of the same tree labelled FG and REF, omega
+     = 5 on FG only at the nine planted codons, ``warmup contrast-fel
+     --branch-set FG --branch-set REF``: seconds per stage, ms per batched
+     site evaluation, one profiled, peak memory, K1 launches; 7 of 9
+     planted codons at p <= 0.1, the per-site lnL card vs host (fp64
+     Taylor, 64 sites) and fp32 vs fp64, the substitution counts card vs
+     host (equal);
+ 15. contrast-MEME on that alignment cut to 512 codons, ``warmup
+     contrast-meme ... --permutations 5``: seconds per stage (alternative,
+     null, pairwise, permutations), the solves' items and chunks, K1
+     launches; the mixture site lnL with per-item permuted set maps card vs
+     host (fp64 Taylor, 64 sites), permutation p in multiples of 1/6;
+ 16. ``warmup meme --resample 5`` on phase 9's alignment cut to 64 codons,
+     with the fused probes: the simulation's and the refits' seconds, p in
+     multiples of 1/6, the card's fp64 family propagators of two sites
+     against ``scipy.linalg.expm`` on three branches (1e-10).
 
-K1's ``launches`` on the kernels line sum phases 4, 7, 8, 9, 10 and 11.  It imports
-nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
+``--precision-check`` runs phases 1-3 and then, in place of phases 4-16,
+FEL's per-site stage on phase 8's input at one capped global fit, run to
+convergence in fp32 and in fp64: the same p <= 0.1 set, and alpha and beta
+within the stated tolerance at all but 5% of the sites.
+
+K1's ``launches`` on the kernels line sum the phases that drive a method
+(4, 7-16, or the precision check), each counted from 0 around its run.  It
+imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
 and ``{"ok": true, "device": {...}}``; a longer record goes to
 ``chiprun_out/chip_smoke.json``.  Without CUDA it exits with 1 and prints
@@ -157,6 +191,34 @@ SLAC_SAMPLES, SLAC_HOST_PATTERNS, SLAC_LNL_REL_BOUND = 10, 512, 1e-9
 # phase 11: MEME's codons (the EBF's items grow with codons x tested
 # branches: ~1.02 M at 512); sites and forced items per chunk of the split
 MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 512, 64, 997
+# phase 12: FUBAR's grid (points per axis); grid points held fp32 vs fp64
+# (alpha > 0 and beta > 0: where alpha or beta is 0 the fp64 spectral route
+# gives round-off for unreachable codons, ROADMAP 3.5) and folded vs one by
+# one; the bounds per pattern
+GRID_POINTS, GRID_FP32_POINTS, GRID_FOLD_POINTS = 20, [66, 128, 211, 295], [150, 275]
+GRID_FP32_BOUND = 0.03      # |d site lnL|, fp32 Taylor vs fp64 spectral, per pattern
+GRID_FOLD_REL_BOUND = 1e-5  # folded grid form vs the one-set form, fp32, relative
+# phase 13: B-STILL's codons (cut for the chip budget)
+BSTILL_CODONS = 512
+FORCED_PATTERNS = 64   # B-STILL's pass 2 again with the chunk forced past K1's node limit
+# phase 14: the contrast alignment: two disjoint clades of ~250 leaves of
+# random_tree_newick(N_TAXA, SEED) labelled FG and REF (the rest background,
+# G = 3), omega = PLANTED_OMEGA on the FG branches only at PLANTED_SITES
+CONTRAST_CLADES, CONTRAST_LABELS = [250, 250], ["FG", "REF"]
+# phase 15: contrast-MEME's codons and permutations
+CMEME_CODONS, CMEME_PERMUTATIONS = 512, 5
+# phase 16: MEME --resample's codons and replicates; sites and branches of
+# the propagator check against scipy
+RESAMPLE_CODONS, MEME_RESAMPLE = 64, 5
+RESAMPLE_CHECK_SITES, RESAMPLE_CHECK_BRANCHES = 2, 3
+RESAMPLE_EXPM_BOUND = 1e-10
+# --precision-check: FEL's per-site stage on phase 8's input, uncapped, in
+# fp32 and in fp64 at one global fit: the same p <= 0.1 set, and alpha and
+# beta within PRECISION_RATE_ATOL + PRECISION_RATE_RTOL * |fp64 value| at
+# all but PRECISION_OUTLIER_SHARE of the sites (rates along which a site's
+# lnL is flat, at 0 or past the data's information, stop where each
+# precision's simplex ends)
+PRECISION_RATE_ATOL, PRECISION_RATE_RTOL, PRECISION_OUTLIER_SHARE = 0.01, 0.05, 0.05
 
 
 def log(msg: str) -> None:
@@ -884,8 +946,8 @@ def phase_sites(torch, data, mgp) -> dict:
 class _CallClock:
     """Phases 7 and 8's instruments, kept out of the package: wraps the
     named package functions, sums each one's seconds (ended by a
-    synchronize) and counts its calls, keeps each one's last arguments and
-    result; times every batched per-site evaluation handed to the grid
+    synchronize), keeps them per call and counts the calls, keeps each
+    one's first arguments and its last arguments and result; times every batched per-site evaluation handed to the grid
     search and the Nelder-Mead; and counts K1 launches per partition of the
     likelihood functions.  ``restore`` puts the package's functions back."""
 
@@ -895,6 +957,7 @@ class _CallClock:
 
         self.torch = torch
         self.seconds, self.calls, self.last = {}, {}, {}
+        self.each, self.first = {}, {}
         self.eval_ms = []
         self.k1_by_partition = {}
         self._saved = []
@@ -931,7 +994,10 @@ class _CallClock:
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             self.torch.cuda.synchronize()
-            self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t0
+            seconds = time.perf_counter() - t0
+            self.seconds[label] = self.seconds.get(label, 0.0) + seconds
+            self.each.setdefault(label, []).append(seconds)
+            self.first.setdefault(label, args)
             self.calls[label] = self.calls.get(label, 0) + 1
             self.last[label] = (args, out)
             return out
@@ -1565,6 +1631,656 @@ def phase_meme(torch, aln, tree_path: str, tmp: str) -> dict:
     return res
 
 
+def _cut_fasta(aln, path: str, codons: int) -> str:
+    _write_fasta(path, aln.names, [s[: 3 * codons] for s in aln.sequences])
+    return path
+
+
+def phase_fubar(torch, fasta: str, tree_path: str, tmp: str) -> dict:
+    """FUBAR at full width on phase 9's alignment through ``warmup fubar
+    --grid GRID_POINTS`` (Variational-Bayes), in-process: seconds per stage
+    (load, GTR, the two grid passes, the posterior), grid points per chunk,
+    K1 launches, peak memory; fp32 against fp64 on GRID_FP32_POINTS, the
+    folded grid form against the one-set form on GRID_FOLD_POINTS, the
+    posterior's sum, the planted codons' P[beta > alpha], the JSON."""
+    import dataclasses
+
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import common, fubar
+    from hyphy_tpu_torch.ops import pruning
+    from hyphy_tpu_torch.optimize import batched
+
+    out_json = os.path.join(tmp, "sim.FUBAR.json")
+    argv = ["warmup", "fubar", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--grid", str(GRID_POINTS)]
+    chunks = []
+    original_solve = fubar.chunked_site_solve
+
+    def recorded_solve(solver, n_items, bytes_per_item, device, chunk=None):
+        chunks.append({"points": n_items, "bytes_per_point": bytes_per_item,
+                       "chunk": chunk or batched.site_chunk(n_items, bytes_per_item, device)})
+        return original_solve(solver, n_items, bytes_per_item, device, chunk=chunk)
+
+    fubar.chunked_site_solve = recorded_solve
+    try:
+        clock, res = _run_cli(torch, argv, [
+            (common, "load_codon_data", "load"),
+            (common, "fit_gtr", "gtr"),
+            (fubar, "grid_pass", "grid_pass"),
+            (fubar, "posterior_over_grid", "posterior"),
+        ])
+    finally:
+        fubar.chunked_site_solve = original_solve
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["grid_pass_s"] = clock.each["grid_pass"]
+    res["chunks"] = chunks
+    with open(out_json) as fh:
+        result = json.load(fh)
+    headers = [h[0] for h in result["MLE"]["headers"]]
+    table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    grid = np.asarray(result["grid"], dtype=np.float64)
+    check(headers[:2] == ["alpha", "beta"] and table.shape == (N_CODONS, 6),
+          f"FUBAR headers {headers}, table {table.shape}")
+    check(grid.shape == (GRID_POINTS ** 2, 3), f"FUBAR grid of shape {grid.shape}")
+    check(bool(np.isfinite(table).all()), "non-finite entries in the FUBAR table")
+    res["posterior_sum"] = float(grid[:, 2].sum())
+    check(abs(res["posterior_sum"] - 1.0) <= 1e-9, f"posterior weights sum to {res['posterior_sum']}")
+    p_pos = table[:, headers.index("Prob[alpha<beta]")]
+    res["planted_p_pos"] = p_pos[PLANTED_SITES].tolist()
+    res["sites_p_pos_ge_0.9"] = int((p_pos >= 0.9).sum())
+
+    # the grid pass on the card: fp32 Taylor against fp64 spectral, and the
+    # folded grid form against the one-set form, on pass 2's branch scales
+    (gp, grid_t, times), sll32 = clock.last["grid_pass"]
+    gp64 = dataclasses.replace(gp, leaves=gp.leaves.double(), dtype=torch.float64)
+    with torch.no_grad():
+        pts = torch.as_tensor(GRID_FP32_POINTS, device=DEVICE)
+        p64 = gp64.propagators(grid_t[pts], times)
+        sll64 = pruning.site_log_likelihoods(p64, gp64.leaves, gp64.freqs, gp64.schedule)
+        res["fp32_vs_fp64"] = float((sll32[pts] - sll64).abs().max())
+        fold = torch.as_tensor(GRID_FOLD_POINTS, device=DEVICE)
+        p32 = gp.propagators(grid_t[fold], times)
+        freqs = gp.freqs.to(gp.dtype)
+        folded = pruning.site_log_likelihoods(p32, gp.leaves, freqs, gp.schedule)
+        alone = torch.cat([pruning.site_log_likelihoods(p32[g:g + 1], gp.leaves, freqs,
+                                                        gp.schedule) for g in range(len(fold))])
+        one_set = torch.stack([pruning.site_log_likelihoods(p32[g], gp.leaves, freqs, gp.schedule)
+                               for g in range(len(fold))])
+    # one grid-form pruning of four points on the pass's fp32 route, profiled
+    with torch.no_grad():
+        p_four = gp.propagators(grid_t[pts], times)
+        res["profile_grid"] = prof = profile_ms(
+            torch, lambda: pruning.site_log_likelihoods(p_four, gp.leaves, freqs, gp.schedule),
+            os.path.join("chiprun_out", "profile_fubar_grid.txt"))
+    del p_four
+    log(f"[fubar] one grid-form pruning of {len(GRID_FP32_POINTS)} points (fp32) profiled: wall "
+        f"{prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in {prof['launches']} "
+        f"launches ({len(prof['k1_launch_ms'])} K1, {sum(prof['k1_launch_ms']):.3f} ms), idle "
+        f"share {prof['idle_share']:.3f}; top {prof['top'][:3]}")
+    res["fold_equal_to_each_point_alone"] = bool(torch.equal(folded, alone))
+    res["fold_vs_one_set_max_rel"] = float(((folded - one_set).abs() / one_set.abs()).max())
+    res["fold_equal_to_pass"] = bool(torch.equal(folded, sll32[fold]))
+    log(f"[fubar] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; grid passes {[round(t, 3) for t in res['grid_pass_s']]} s; chunks {chunks}")
+    res["peak_per_point_gb"] = res["peak_gb"] / max(c["chunk"] for c in chunks)
+    log(f"[fubar] bytes per grid point: modelled {chunks[0]['bytes_per_point'] / 1e9:.3f} GB "
+        f"(pruning.grid_point_bytes and the propagators), the run's peak over its largest "
+        f"chunk {res['peak_per_point_gb']:.3f} GB")
+    log(f"[fubar] K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
+        f"posterior sum {res['posterior_sum']:.12f}; sites at P[beta>alpha] >= 0.9: "
+        f"{res['sites_p_pos_ge_0.9']}; planted {[round(x, 4) for x in res['planted_p_pos']]}")
+    log(f"[fubar] pass 2 on grid points {GRID_FP32_POINTS}: fp32 Taylor vs fp64 spectral max "
+        f"|d| {res['fp32_vs_fp64']:.3e} (bound {GRID_FP32_BOUND}); points {GRID_FOLD_POINTS} "
+        f"folded: equal to each alone {res['fold_equal_to_each_point_alone']}, to the run's pass "
+        f"{res['fold_equal_to_pass']}, vs the one-set form max rel "
+        f"{res['fold_vs_one_set_max_rel']:.3e} (bound {GRID_FOLD_REL_BOUND})")
+    check(res["fp32_vs_fp64"] <= GRID_FP32_BOUND, "FUBAR fp32 grid far from fp64")
+    check(res["fold_equal_to_each_point_alone"] and res["fold_equal_to_pass"],
+          "FUBAR grid points depend on the points beside them")
+    check(res["fold_vs_one_set_max_rel"] <= GRID_FOLD_REL_BOUND,
+          "FUBAR folded grid far from the one-set pruning")
+    check(sum(p >= 0.9 for p in res["planted_p_pos"]) >= 7,
+          f"planted codons at P[beta > alpha] >= 0.9: {res['planted_p_pos']}")
+    check(res["level_products_launches"] > 0, "FUBAR launched no level_products kernel")
+    return res
+
+
+def phase_bstill(torch, aln, tree_path: str, tmp: str) -> dict:
+    """B-STILL on phase 9's alignment cut to BSTILL_CODONS codons through
+    ``warmup b-still --grid GRID_POINTS``: seconds, K1 launches; the JSON
+    and finite EBFs.  Then K1's node limit: pass 2 again on its first
+    FORCED_PATTERNS patterns with the chunk forced to the whole grid, which
+    :func:`fubar.grid_chunk` must cut so that every level's launch stays
+    within 65535 node rows, each point equal to the run's."""
+    import dataclasses
+
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import bstill, common, fubar
+    from hyphy_tpu_torch.ops import pruning
+    from hyphy_tpu_torch.ops.level_products import _MAX_NODES, level_products
+
+    fasta = _cut_fasta(aln, os.path.join(tmp, "bstill.fasta"), BSTILL_CODONS)
+    out_json = os.path.join(tmp, "bstill.BSTILL.json")
+    argv = ["warmup", "b-still", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--grid", str(GRID_POINTS)]
+    clock, res = _run_cli(torch, argv, [
+        (common, "load_codon_data", "load"),
+        (common, "fit_gtr", "gtr"),
+        (fubar, "grid_pass", "grid_pass"),
+        (bstill, "posterior_over_grid", "posterior"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    with open(out_json) as fh:
+        result = json.load(fh)
+    table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    check(table.shape == (BSTILL_CODONS, 14), f"B-STILL table of shape {table.shape}")
+    check(bool(np.isfinite(table).all()), "non-finite entries in the B-STILL table")
+    posterior = np.asarray(result["posterior"]["0"], dtype=np.float64)
+    check(posterior.shape == (BSTILL_CODONS, GRID_POINTS ** 2),
+          f"B-STILL posteriors of shape {posterior.shape}")
+    res["ebf_max"] = table[:, 9:13].max(axis=0).tolist()
+    res["proximal_sites"] = int((table[:, 12] >= 10.0).sum())
+    log(f"[bstill] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
+        f"EBF maxima {res['ebf_max']}; proximal sites {res['proximal_sites']}")
+    check(res["level_products_launches"] > 0, "B-STILL launched no level_products kernel")
+
+    (gp, grid_t, times), sll = clock.last["grid_pass"]
+    cut = dataclasses.replace(gp, leaves=gp.leaves[:, :FORCED_PATTERNS].contiguous())
+    n_points = grid_t.shape[0]
+    rows = max(pruning._launch_rows(plan) for plan in gp.schedule.plans)
+    chunk = fubar.grid_chunk(cut, n_points, DEVICE, n_points)
+    n_calls = -(-n_points // chunk)
+    before = level_products.launches
+    t0 = time.perf_counter()
+    forced = fubar.grid_pass(cut, grid_t, times, chunk=n_points)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    run = sll[:, :FORCED_PATTERNS]
+    finite = torch.isfinite(run)      # -inf: patterns a grid point cannot produce
+    res["forced_chunk"] = {
+        "points": n_points, "forced": n_points, "chunk": chunk, "calls": n_calls,
+        "widest_rows": rows, "rows_per_launch": chunk * rows, "seconds": seconds,
+        "launches": level_products.launches - before,
+        "max_rel_vs_run": float(((forced - run).abs() / run.abs())[finite].max()),
+        "same_impossible": bool(torch.equal(torch.isfinite(forced), finite)),
+        "equal_to_run": bool(torch.equal(forced, run))}
+    fc = res["forced_chunk"]
+    log(f"[bstill] pass 2 on {FORCED_PATTERNS} patterns, chunk forced to {n_points} points: "
+        f"cut to {chunk} ({n_points * rows} node rows uncut, {fc['rows_per_launch']} per launch, "
+        f"limit {_MAX_NODES}), {n_calls} calls, {fc['launches']} K1 launches, "
+        f"{fc['seconds']:.3f} s; vs the run's pass max rel {fc['max_rel_vs_run']:.3e}, equal "
+        f"{fc['equal_to_run']}")
+    check(n_points * rows > _MAX_NODES, "the forced chunk did not pass K1's node limit")
+    check(chunk * rows <= _MAX_NODES and n_calls >= 2, f"grid chunk {chunk} not cut")
+    check(fc["launches"] == n_calls * len(gp.schedule.plans),
+          f"{fc['launches']} K1 launches for {n_calls} calls")
+    check(fc["max_rel_vs_run"] <= GRID_FOLD_REL_BOUND and fc["same_impossible"],
+          "the forced-chunk pass differs from the run's")
+    return res
+
+
+def _clade_members(tree, node):
+    out, stack = [], [node]
+    while stack:
+        nd = stack.pop()
+        out.append(nd)
+        stack.extend(tree.children[nd])
+    return out
+
+
+def _contrast_alignment(tmp: str, kappa: float = 2.5, omega: float = 0.3):
+    """The contrast alignment of phases 14-15: disjoint clades of
+    ``random_tree_newick(N_TAXA, SEED)`` near CONTRAST_CLADES leaves (for
+    each in turn, the non-root node whose leaf count is nearest, lowest id
+    on ties, outside and not above the clades taken) labelled
+    CONTRAST_LABELS on every branch, stem included; codons drawn along it
+    with ``utils/simulate.py::simulate_states`` under MG94-style
+    propagators (``synth._mg94_generator``'s unit-rate generator at omega
+    0.3) everywhere, except PLANTED_OMEGA at the same synonymous rate on the
+    first label's branches at PLANTED_SITES.  Returns (alignment, FASTA,
+    newick file)."""
+    import numpy as np
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch.data.alignment import Alignment
+    from hyphy_tpu_torch.data.genetic_code import GeneticCode
+    from hyphy_tpu_torch.tree.topology import Tree
+    from hyphy_tpu_torch.utils import synth
+    from hyphy_tpu_torch.utils.simulate import simulate_states, states_to_alignment
+
+    t0 = time.perf_counter()
+    gc = GeneticCode("Universal")
+    tree = Tree.from_newick(synth.random_tree_newick(N_TAXA, seed=SEED))
+    lengths = np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6)
+    leaves = {nd: sum(1 for m in _clade_members(tree, nd) if tree.is_leaf(m))
+              for nd in range(tree.n_nodes) if nd != tree.root}
+    taken, clades = set(), []
+    for size in CONTRAST_CLADES:
+        free = [nd for nd in leaves if not set(_clade_members(tree, nd)) & taken
+                and not any(nd in _clade_members(tree, c[0]) for c in clades)]
+        best = min(free, key=lambda nd: (abs(leaves[nd] - size), nd))
+        clades.append(_clade_members(tree, best))
+        taken |= set(clades[-1])
+    labels = {nd: lbl for lbl, clade in zip(CONTRAST_LABELS, clades) for nd in clade}
+
+    def fmt(nd):
+        base = tree.names[nd] if tree.is_leaf(nd) else (
+            "(" + ",".join(fmt(c) for c in tree.children[nd]) + ")" + tree.names[nd])
+        if nd in labels:
+            base += "{" + labels[nd] + "}"
+        return base + (f":{lengths[nd]:.6f}" if nd != tree.root else "")
+
+    pi = np.full(gc.n_states, 1.0 / gc.n_states)
+    slow = synth._mg94_generator(gc, kappa, omega)
+    # PLANTED_OMEGA at the same synonymous rate: the non-synonymous entries
+    # of the unit-rate omega generator scaled by PLANTED_OMEGA / omega
+    amino = np.array(list(gc.translation))[np.asarray(gc.sense_codons)]
+    fast = np.where(amino[:, None] != amino[None, :], slow * (PLANTED_OMEGA / omega), slow)
+    np.fill_diagonal(fast, 0.0)
+    fast -= np.diag(fast.sum(axis=1))
+    base = np.stack([sla.expm(slow * t) for t in lengths])
+    selected = base.copy()
+    for nd in clades[0]:
+        selected[nd] = sla.expm(fast * lengths[nd])
+    rng = np.random.default_rng(SEED)
+    cols = np.setdiff1d(np.arange(N_CODONS), PLANTED_SITES)
+    states = np.zeros((tree.n_nodes, N_CODONS), dtype=np.int32)
+    states[:, cols] = simulate_states(tree, base, pi, len(cols), rng)
+    states[:, PLANTED_SITES] = simulate_states(tree, selected, pi, len(PLANTED_SITES), rng)
+    names, seqs = states_to_alignment(states, tree, "codon", gc)
+    fasta = os.path.join(tmp, "contrast.fasta")
+    _write_fasta(fasta, names, seqs)
+    tree_path = os.path.join(tmp, "contrast.nwk")
+    with open(tree_path, "w") as fh:
+        fh.write(fmt(tree.root))
+    log(f"[contrast] alignment of {N_TAXA} taxa x {N_CODONS} codons, clades of "
+        f"{[sum(tree.is_leaf(m) for m in c) for c in clades]} leaves labelled "
+        f"{CONTRAST_LABELS}, omega {PLANTED_OMEGA} on {CONTRAST_LABELS[0]} at "
+        f"{PLANTED_SITES}: {time.perf_counter() - t0:.2f} s on the host")
+    return Alignment(names, seqs), fasta, tree_path
+
+
+def _contrast_table(result, n_codons):
+    import numpy as np
+
+    headers = [h[0] for h in result["MLE"]["headers"]]
+    table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    check(table.shape == (n_codons, len(headers)), f"table of shape {table.shape}")
+    check(bool(np.isfinite(table).all()), "non-finite entries in the table")
+    p = table[:, headers.index("P-value (overall)")]
+    check(bool(((p >= 0) & (p <= 1)).all()), "p-values outside [0, 1]")
+    return headers, table, p
+
+
+def phase_contrast_fel(torch, fasta: str, tree_path: str, tmp: str) -> dict:
+    """contrast-FEL at full width (G = 3) through ``warmup contrast-fel
+    --branch-set FG --branch-set REF``: seconds per stage, ms per batched
+    site evaluation, one profiled, peak memory, K1 launches; the planted
+    codons at p <= 0.1; the per-site lnL of 64 sites card vs host (fp64
+    Taylor) and fp32 vs fp64 on every pattern; the substitution counts card
+    vs host."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import common, contrast_fel, fel
+
+    out_json = os.path.join(tmp, "contrast.CFEL.json")
+    argv = ["warmup", "contrast-fel", "--alignment", fasta, "--tree", tree_path,
+            "--output", out_json]
+    for lbl in CONTRAST_LABELS:
+        argv += ["--branch-set", lbl]
+    clock, res = _run_cli(torch, argv, [
+        (contrast_fel, "load_multigroup", "load"),
+        (common, "fit_gtr", "gtr"),
+        (common, "fit_partitioned_mg94", "mg94"),
+        (contrast_fel, "fit_sites", "per_site"),
+        (contrast_fel, "substitution_counts", "substitution_counts"),
+        (contrast_fel, "grid_best_starts", "grid"),
+        (contrast_fel, "vmapped_nelder_mead", "nelder_mead"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["calls"] = dict(clock.calls)
+    res["site_eval_ms"] = _eval_stats(clock.eval_ms)
+    with open(out_json) as fh:
+        result = json.load(fh)
+    headers, table, p = _contrast_table(result, N_CODONS)
+    check(headers[1:4] == [f"beta ({g})" for g in CONTRAST_LABELS + ["background"]],
+          f"contrast-FEL headers {headers}")
+    res["table"] = {"sites_p_le_0.1": int((p <= 0.1).sum()), "planted_p": p[PLANTED_SITES].tolist()}
+    res["profile_eval"] = prof = _profile_last_fit(torch, clock, "contrast_fel_site_eval")
+
+    (data, mgp, _), _ = clock.last["per_site"]
+    groups = np.asarray(data.branch_groups)
+    n = min(SITE_PARITY_N, data.codon_filter.n_patterns)
+    idx = torch.arange(n, device=DEVICE)
+    f64 = dict(dtype=torch.float64, device=DEVICE)
+    a = torch.linspace(0.2, 2.0, n, **f64)
+    betas = torch.stack([torch.linspace(0.1, 8.0, n, **f64), torch.full((n,), 0.3, **f64),
+                         torch.linspace(2.0, 0.05, n, **f64)], dim=1)
+    host_fit = _host_fit(mgp, data)
+    with torch.no_grad():
+        card64 = fel.site_log_likelihood(data, mgp, torch.float64, False, groups=groups)
+        host64 = fel.site_log_likelihood(data, host_fit, torch.float64, False, groups=groups)
+        res["site_fp64_card_vs_host"] = float(
+            (card64(idx, a, betas).cpu() - host64(idx.cpu(), a.cpu(), betas.cpu())).abs().max())
+        card32 = fel.site_log_likelihood(data, mgp, torch.float32, False, groups=groups)
+        rows = torch.arange(data.codon_filter.n_patterns, device=DEVICE)
+        a_all = torch.ones(rows.shape[0], **f64)
+        b_all = torch.tensor([[2.0, 0.3, 0.5]], **f64).expand(rows.shape[0], -1)
+        res["site_fp32_vs_fp64"] = float(
+            (card32(rows, a_all, b_all).double() - card64(rows, a_all, b_all)).abs().max())
+    card_counts = contrast_fel.substitution_counts(data, mgp, 3)
+    host_counts = contrast_fel.substitution_counts(data, host_fit, 3)
+    res["counts_card_vs_host_equal"] = bool(np.array_equal(card_counts, host_counts))
+    res["counts_per_set"] = card_counts.sum(axis=1).tolist()
+    log(f"[contrast-fel] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items()) + f"; calls {res['calls']}")
+    log(f"[contrast-fel] K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
+        f"batched site evaluations "
+        f"{ {k: round(v, 3) for k, v in res['site_eval_ms'].items()} } ms; one profiled "
+        f"({prof['sites']} sites): wall {prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} "
+        f"ms in {prof['launches']} launches, idle share {prof['idle_share']:.3f}")
+    log(f"[contrast-fel] table {res['table']}; per-site lnL (G = 3) fp64 Taylor card vs host on "
+        f"{n} sites {res['site_fp64_card_vs_host']:.3e} (bound {SITE_HOST_BOUND}), fp32 vs fp64 "
+        f"on {rows.shape[0]} patterns {res['site_fp32_vs_fp64']:.3e} (bound {SITE_FP32_BOUND}); "
+        f"substitution counts card = host {res['counts_card_vs_host_equal']}, per set "
+        f"{res['counts_per_set']}")
+    check(sum(x <= 0.1 for x in res["table"]["planted_p"]) >= 7,
+          f"planted codons at p <= 0.1: {res['table']['planted_p']}")
+    check(res["site_fp64_card_vs_host"] <= SITE_HOST_BOUND, "contrast-FEL site lnL: card vs host")
+    check(res["site_fp32_vs_fp64"] <= SITE_FP32_BOUND, "contrast-FEL fp32 site lnL far from fp64")
+    check(res["counts_card_vs_host_equal"], "contrast-FEL substitution counts: card vs host")
+    check(res["level_products_launches"] > 0, "contrast-FEL launched no level_products kernel")
+    return res
+
+
+def phase_contrast_meme(torch, aln, tree_path: str, tmp: str) -> dict:
+    """contrast-MEME on the contrast alignment cut to CMEME_CODONS codons
+    through ``warmup contrast-meme --permutations CMEME_PERMUTATIONS``:
+    seconds per stage (alternative, nulls, permutations), jobs and chunks,
+    K1 launches; the mixture site lnL of 64 sites card vs host (fp64
+    Taylor); permutation p-values in multiples of 1/(N+1)."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import common, contrast_meme
+    from hyphy_tpu_torch.optimize import batched
+
+    fasta = _cut_fasta(aln, os.path.join(tmp, "cmeme.fasta"), CMEME_CODONS)
+    out_json = os.path.join(tmp, "contrast.CMEME.json")
+    argv = ["warmup", "contrast-meme", "--alignment", fasta, "--tree", tree_path,
+            "--output", out_json, "--permutations", str(CMEME_PERMUTATIONS)]
+    for lbl in CONTRAST_LABELS:
+        argv += ["--branch-set", lbl]
+    solves = []
+    original_solve = contrast_meme.chunked_site_solve
+
+    def recorded_solve(solver, n_items, bytes_per_item, device, chunk=None):
+        solves.append({"items": n_items, "bytes_per_item": bytes_per_item,
+                       "chunk": chunk or batched.site_chunk(n_items, bytes_per_item, device)})
+        return original_solve(solver, n_items, bytes_per_item, device, chunk=chunk)
+
+    contrast_meme.chunked_site_solve = recorded_solve
+    try:
+        clock, res = _run_cli(torch, argv, [
+            (contrast_meme, "load_multigroup", "load"),
+            (common, "fit_gtr", "gtr"),
+            (common, "fit_partitioned_mg94", "mg94"),
+            (contrast_meme, "alternative_stage", "alternative"),
+            (contrast_meme, "null_stage", "null"),
+            (contrast_meme, "pairwise_stage", "pairwise"),
+            (contrast_meme, "permutation_stage", "permutations"),
+            (contrast_meme, "substitution_counts", "substitution_counts"),
+        ])
+    finally:
+        contrast_meme.chunked_site_solve = original_solve
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["calls"] = dict(clock.calls)
+    # the permutation stage calls the alternative stage too: its seconds
+    # per call, the sites' first
+    res["alternative_each_s"] = clock.each["alternative"]
+    res["solves"] = solves
+    with open(out_json) as fh:
+        result = json.load(fh)
+    headers, table, p = _contrast_table(result, CMEME_CODONS)
+    perm = table[:, headers.index("Permutation p-value")]
+    tested = perm >= 0
+    step = 1.0 / (CMEME_PERMUTATIONS + 1)
+    res["permutation_sites"] = int(tested.sum())
+    res["permutation_p"] = perm[tested].tolist()
+    planted = [s for s in PLANTED_SITES if s < CMEME_CODONS]
+    res["table"] = {"sites_p_le_0.1": int((p <= 0.1).sum()), "planted_p": p[planted].tolist()}
+    check(bool(np.allclose(np.round(perm[tested] / step) * step, perm[tested], rtol=0,
+                           atol=1e-12) and (perm[tested] >= step - 1e-12).all()),
+          f"permutation p-values not multiples of 1/{CMEME_PERMUTATIONS + 1}")
+    check(bool((perm[~tested] == -1).all()), "permutation p-values of unscreened sites")
+
+    model, _, _, idx_sites = clock.first["alternative"]
+    with torch.no_grad():
+        point = {key: v[0].expand(idx_sites.shape[0]) for key, v in
+                 contrast_meme._start_grid(model.n_groups, model.srv, DEVICE).items()}
+        res["profile_eval"] = prof = profile_ms(
+            torch, lambda: model.alternative(idx_sites, point),
+            os.path.join("chiprun_out", "profile_contrast_meme_eval.txt"))
+    prof["sites"] = int(idx_sites.shape[0])
+    log(f"[contrast-meme] one mixture evaluation ({prof['sites']} sites, 6 families, fp32 "
+        f"Taylor) profiled: wall {prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in "
+        f"{prof['launches']} launches, idle share {prof['idle_share']:.3f}")
+    data, mgp = clock.last["substitution_counts"][0][:2]
+    n = min(SITE_PARITY_N, data.codon_filter.n_patterns)
+    f64 = dict(dtype=torch.float64, device=DEVICE)
+    sites = torch.arange(n, device=DEVICE)
+    a = torch.linspace(0.2, 2.0, n, **f64)
+    b1 = torch.stack([torch.linspace(0.0, 1.0, n, **f64)] * 3, dim=1)
+    b2 = torch.stack([torch.linspace(8.0, 1.0, n, **f64), torch.full((n,), 0.5, **f64),
+                      torch.full((n,), 2.0, **f64)], dim=1)
+    prop = torch.stack([torch.linspace(0.1, 0.9, n, **f64)] * 3, dim=1)
+    # a permuted branch-to-set map per site, as the permutation jobs carry
+    rng = np.random.default_rng(1)
+    groups = torch.as_tensor(np.stack([rng.permutation(data.branch_groups) for _ in range(n)]),
+                             device=DEVICE)
+    with torch.no_grad():
+        card = contrast_meme.set_mixture(data, mgp, torch.float64, False)
+        host = contrast_meme.set_mixture(data, _host_fit(mgp, data), torch.float64, False)
+        res["mixture_fp64_card_vs_host"] = float(
+            (card.loglik(sites, a, b1, b2, prop, groups).cpu()
+             - host.loglik(sites.cpu(), a.cpu(), b1.cpu(), b2.cpu(), prop.cpu(), groups.cpu()))
+            .abs().max())
+    log(f"[contrast-meme] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items()) + f"; calls {res['calls']}")
+    log(f"[contrast-meme] alternative per call (sites, then permutation jobs) "
+        f"{[round(t, 3) for t in res['alternative_each_s']]} s; solves (items, chunk) "
+        f"{[(x['items'], x['chunk']) for x in solves]}; "
+        f"K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
+        f"table {res['table']}; {res['permutation_sites']} sites permuted, p "
+        f"{res['permutation_p']}")
+    log(f"[contrast-meme] mixture site lnL (6 families, per-item set maps), fp64 Taylor, card vs "
+        f"host on {n} sites: {res['mixture_fp64_card_vs_host']:.3e} (bound {SITE_HOST_BOUND})")
+    check(res["mixture_fp64_card_vs_host"] <= SITE_HOST_BOUND,
+          "contrast-MEME mixture site lnL: card vs host")
+    check(res["level_products_launches"] > 0, "contrast-MEME launched no level_products kernel")
+    return res
+
+
+def phase_meme_resample(torch, aln, tree_path: str, tmp: str) -> dict:
+    """``warmup meme --resample MEME_RESAMPLE`` on phase 9's alignment cut
+    to RESAMPLE_CODONS codons, with the fused Nelder-Mead probes: the
+    simulation's and the refits' seconds; p-values in multiples of 1/(N+1);
+    the card's fp64 family propagators of RESAMPLE_CHECK_SITES sites against
+    ``scipy.linalg.expm`` on RESAMPLE_CHECK_BRANCHES branches."""
+    import numpy as np
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch.methods import common, meme
+    from hyphy_tpu_torch.utils import simulate as sim_mod
+
+    fasta = _cut_fasta(aln, os.path.join(tmp, "resample.fasta"), RESAMPLE_CODONS)
+    out_json = os.path.join(tmp, "resample.MEME.json")
+    argv = ["warmup", "meme", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--resample", str(MEME_RESAMPLE)]
+    drawn = []
+    original_draw = sim_mod.simulate_states
+
+    def recording(tree, p, root_freqs, n_reps, rng):
+        if len(drawn) < RESAMPLE_CHECK_SITES:
+            drawn.append(np.array(p))
+        return original_draw(tree, p, root_freqs, n_reps, rng)
+
+    sim_mod.simulate_states = recording
+    os.environ["HYPHY_TPU_NM_FUSED"] = "1"
+    try:
+        clock, res = _run_cli(torch, argv, [
+            (common, "load_codon_data_multi", "load"),
+            (common, "fit_gtr_multi", "gtr"),
+            (common, "fit_partitioned_mg94_multi", "mg94"),
+            (meme, "site_pipeline", "pipeline"),
+            (meme, "branch_ebfs", "ebf"),
+            (meme, "simulate_null_states", "simulation"),
+            (meme, "bootstrap_lrts", "bootstrap"),
+            (meme, "_alternative_stage", "alternative"),
+        ])
+    finally:
+        del os.environ["HYPHY_TPU_NM_FUSED"]
+        sim_mod.simulate_states = original_draw
+    res["command"] = ("HYPHY_TPU_NM_FUSED=1 " + " ".join(
+        ["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv]))
+    res["stages_s"] = dict(clock.seconds)
+    res["refit_s"] = res["stages_s"]["bootstrap"] - res["stages_s"]["simulation"]
+    # the bootstrap's alternative: one batched mixture evaluation of its items
+    sites, _, idx, starts = clock.last["alternative"][0]
+    with torch.no_grad():
+        res["profile_eval"] = prof = profile_ms(
+            torch, lambda: sites.loglik(idx, starts),
+            os.path.join("chiprun_out", "profile_resample_eval.txt"))
+    prof["items"] = int(idx.shape[0])
+    log(f"[resample] one bootstrap mixture evaluation ({prof['items']} items) profiled: wall "
+        f"{prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in {prof['launches']} "
+        f"launches, idle share {prof['idle_share']:.3f}")
+    with open(out_json) as fh:
+        result = json.load(fh)
+    headers = [h[0] for h in result["MLE"]["headers"]]
+    table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    check(table.shape == (RESAMPLE_CODONS, len(headers)) and bool(np.isfinite(table).all()),
+          f"MEME --resample table of shape {table.shape}")
+    p = table[:, headers.index("p-value")]
+    step = 1.0 / (MEME_RESAMPLE + 1)
+    check(bool(np.allclose(np.round(p / step) * step, p, rtol=0, atol=1e-12)
+               and (p >= step - 1e-12).all() and (p <= 1.0).all()),
+          f"bootstrap p-values not multiples of 1/{MEME_RESAMPLE + 1} in [1/{MEME_RESAMPLE + 1}, 1]")
+    res["p_le_0.25"] = int((p <= 0.25).sum())
+
+    # the card's fp64 propagators of the first sites against scipy's expm
+    data, mgp, null, k = clock.last["simulation"][0][:4]
+    filt = data.codon_filter
+    sites = np.nonzero(~filt.constant_pattern_mask())[0][:RESAMPLE_CHECK_SITES]
+    tested = data.tested_branches
+    branches = np.nonzero(tested)[0][:RESAMPLE_CHECK_BRANCHES]
+    with torch.no_grad():
+        q_syn, q_non = (q.double().cpu().numpy()
+                        for q in mgp.model.combined_basis_matrices(mgp.params))
+    worst = 0.0
+    for s, p_card in zip(sites, drawn):
+        a = null["alpha"][s]
+        w = meme._stick_weights(torch.as_tensor(
+            [null[f"w_{i}"][s] for i in range(1, k)], dtype=torch.float64)).numpy()
+        betas = [null[f"omega_{i}"][s] * a for i in range(1, k)] + [a]
+        fams = []
+        for beta in betas:
+            q = a * q_syn + beta * q_non
+            fams.append(q - np.diag(q.sum(axis=1)))
+        for b in branches:
+            want = sum(w[c] * sla.expm(fams[c] * mgp.alphas[b]) for c in range(k))
+            worst = max(worst, float(np.abs(p_card[b] - want).max()))
+    res["propagators_vs_scipy"] = worst
+    log(f"[resample] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; refits {res['refit_s']:.3f} s; K1 launches {res['level_products_launches']}; peak "
+        f"{res['peak_gb']:.2f} GB; sites at p <= 0.25: {res['p_le_0.25']}")
+    log(f"[resample] fp64 family propagators of sites {sites.tolist()} on branches "
+        f"{branches.tolist()}, card vs scipy.linalg.expm: max |d| {worst:.3e} "
+        f"(bound {RESAMPLE_EXPM_BOUND})")
+    check(len(drawn) == len(sites) and worst <= RESAMPLE_EXPM_BOUND,
+          "MEME --resample propagators far from scipy's expm")
+    check(res["level_products_launches"] > 0, "MEME --resample launched no level_products kernel")
+    return res
+
+
+def phase_precision(torch, tmp: str) -> dict:
+    """FEL's fp32 and fp64 site calls on phase 8's input (1000 taxa x
+    CI_CODONS codons), no CI, no bootstrap: the global fits capped, then
+    the per-site stage run to convergence at that one fit in fp32 (Taylor)
+    and in fp64 (spectral): the p <= 0.1 sets equal, alpha and beta within
+    PRECISION_RATE_ATOL + PRECISION_RATE_RTOL * |fp64| at all but
+    PRECISION_OUTLIER_SHARE of the sites; seconds of each."""
+    import numpy as np
+
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.methods import common, fel
+    from hyphy_tpu_torch.ops.level_products import level_products
+    from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
+
+    aln = synthetic_codon_alignment(N_TAXA, CI_CODONS, seed=SEED)
+    fasta = os.path.join(tmp, "precision.fasta")
+    _write_fasta(fasta, aln.names, aln.sequences)
+    newick = random_tree_newick(N_TAXA, seed=SEED)
+    res = {}
+    level_products.launches = 0
+    t0 = time.perf_counter()
+    md = common.load_codon_data_multi(fasta, tree_newick=newick, device=DEVICE)
+    settings.warmup = True
+    try:
+        gtr = common.fit_gtr_multi(md)
+        md, gtr = common.kill_zero_branches_multi(md, gtr, "All")
+        mg = common.fit_partitioned_mg94_multi(md, gtr)
+    finally:
+        settings.warmup = False
+    torch.cuda.synchronize()
+    res["global_fits_s"] = time.perf_counter() - t0
+    tables = {}
+    for name in ("float32", "float64"):
+        os.environ["HYPHY_TPU_PRECISION"] = name
+        try:
+            t0 = time.perf_counter()
+            tables[name], _ = fel.solve_partition(md.parts[0], mg.parts[0])
+            torch.cuda.synchronize()
+            res[f"{name}_s"] = time.perf_counter() - t0
+        finally:
+            del os.environ["HYPHY_TPU_PRECISION"]
+    res["level_products_launches"] = level_products.launches
+    t32, t64 = tables["float32"], tables["float64"]
+    calls32, calls64 = t32[:, 4] <= 0.1, t64[:, 4] <= 0.1
+    res["p_le_0.1"] = {"float32": int(calls32.sum()), "float64": int(calls64.sum())}
+    res["same_calls"] = bool(np.array_equal(calls32, calls64))
+    res["rates"] = {}
+    for col, name in ((0, "alpha"), (1, "beta")):
+        d = np.abs(t32[:, col] - t64[:, col])
+        off = d > PRECISION_RATE_ATOL + PRECISION_RATE_RTOL * np.abs(t64[:, col])
+        res["rates"][name] = {"outside_share": float(off.mean()),
+                              "median_abs": float(np.median(d)), "max_abs": float(d.max()),
+                              "median_rel": float(np.median(d / np.maximum(np.abs(t64[:, col]),
+                                                                          1e-12)))}
+    res["lrt_max_abs"] = float(np.abs(t32[:, 3] - t64[:, 3]).max())
+    res["lrt_median_abs"] = float(np.median(np.abs(t32[:, 3] - t64[:, 3])))
+    log(f"[precision] FEL per-site stage on {N_TAXA} x {CI_CODONS} codons at one capped global "
+        f"fit ({res['global_fits_s']:.2f} s), uncapped: fp32 {res['float32_s']:.2f} s, fp64 "
+        f"{res['float64_s']:.2f} s; p <= 0.1: {res['p_le_0.1']}, same set {res['same_calls']}; "
+        f"rates {res['rates']}; LRT |d| median {res['lrt_median_abs']:.3e} max "
+        f"{res['lrt_max_abs']:.3e}; K1 launches {res['level_products_launches']}")
+    check(res["same_calls"], "fp32 and fp64 FEL call different sites at p <= 0.1")
+    for name, r in res["rates"].items():
+        check(r["outside_share"] <= PRECISION_OUTLIER_SHARE,
+              f"fp32 {name} outside the tolerance at {r['outside_share']:.3f} of the sites")
+    check(res["level_products_launches"] > 0, "the precision check launched no kernel")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -1581,41 +2297,29 @@ def main(argv) -> int:
     record = {"card": phase_card(torch), "build": phase_build()}
     record["kernels"] = phase_kernels(torch)
     full_fit = "--full-fit" in argv
+    precision_check = "--precision-check" in argv
     with tempfile.TemporaryDirectory() as tmp:
-        aln, newick, fasta, tree_path = _write_inputs(tmp)
-        record["main_path"] = phase_main_path(torch, fasta, tree_path, tmp, full_fit)
-        data, mgp = record["main_path"].pop("data"), record["main_path"].pop("mg94_fit")
-        record["parity"] = phase_parity(torch, aln, newick)
-        record["sites"] = phase_sites(torch, data, mgp)
-        torch.cuda.empty_cache()
-        record["fused_probes"] = phase_fused_probes(torch, data, mgp)
-        del data, mgp
-        torch.cuda.empty_cache()
-        record["partitions"] = phase_partitions(torch, aln, newick, tmp, full_fit)
-        torch.cuda.empty_cache()
-        record["options"] = phase_options(torch, tmp)
-        torch.cuda.empty_cache()
-        sim_aln, sim_fasta, sim_tree = _planted_alignment(tmp)
-        record["slac"] = phase_slac(torch, sim_fasta, sim_tree, tmp)
-        torch.cuda.empty_cache()
-        record["simulate"] = phase_simulate(torch, sim_aln, sim_fasta, sim_tree, tmp)
-        torch.cuda.empty_cache()
-        record["meme"] = phase_meme(torch, sim_aln, sim_tree, tmp)
+        if precision_check:
+            record["precision"] = phase_precision(torch, tmp)
+            main_phases = ("precision",)
+        else:
+            main_phases = _default_phases(torch, record, tmp, full_fit)
 
     wide = next(r for r in record["kernels"]["shapes"]
                 if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")
     per_eval = next(r for r in record["kernels"]["evaluation"]
                     if r["states"] == 61 and r["dtype"] == "float32")
-    # K1 inside a real fp32 evaluation (phase 5's profile) against phase 3's
-    # per-level times on fresh random inputs, level by level
-    in_eval = record["parity"]["float32"]["profile_value"]["k1_launch_ms"]
-    check(len(in_eval) == len(LEVEL_WIDTHS), "the fp32 profile lost K1 launches")
-    log(f"[kernel] level_products fp32 per evaluation: phase 3 {per_eval['ms']:.4f} ms, "
-        f"inside the profiled evaluation {sum(in_eval):.4f} ms; per level, phase 3 / "
-        f"evaluation: {[round(a / b, 3) for a, b in zip(per_eval['per_level_ms'], in_eval)]}")
-    launches = {"level_products": sum(
-        record[phase]["level_products_launches"]
-        for phase in ("main_path", "partitions", "options", "slac", "simulate", "meme"))}
+    if not precision_check:
+        # K1 inside a real fp32 evaluation (phase 5's profile) against phase
+        # 3's per-level times on fresh random inputs, level by level
+        in_eval = record["parity"]["float32"]["profile_value"]["k1_launch_ms"]
+        check(len(in_eval) == len(LEVEL_WIDTHS), "the fp32 profile lost K1 launches")
+        log(f"[kernel] level_products fp32 per evaluation: phase 3 {per_eval['ms']:.4f} ms, "
+            f"inside the profiled evaluation {sum(in_eval):.4f} ms; per level, phase 3 / "
+            f"evaluation: {[round(a / b, 3) for a, b in zip(per_eval['per_level_ms'], in_eval)]}")
+    by_phase = {phase: record[phase]["level_products_launches"] for phase in main_phases}
+    log(f"[kernel] level_products launches per phase: {by_phase}")
+    launches = {"level_products": sum(by_phase.values())}
     kernels = [{
         "name": name, "route": "cuda", "status": "ok",
         "source": f"hyphy_tpu_torch/csrc/{name}.cu",
@@ -1623,10 +2327,12 @@ def main(argv) -> int:
         "launches": launches[name], "max_abs_err": wide["max_abs_err"],
         "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
-        "eval_ms": per_eval["ms"], "eval_profiled_ms": sum(in_eval),
-        "eval_library_ms": per_eval["library_ms"],
+        "eval_ms": per_eval["ms"], "eval_library_ms": per_eval["library_ms"],
         "eval_bound_ms": per_eval["bound_ms"],
+        "launches_by_phase": by_phase,
     } for name in SOURCES]
+    if not precision_check:
+        kernels[0]["eval_profiled_ms"] = sum(in_eval)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1)
     log(f"{record['card']['nvidia_smi']}")
@@ -1635,6 +2341,48 @@ def main(argv) -> int:
         "platform": "gpu", "kind": record["card"]["name"],
         "count": record["card"]["count"]}}))
     return 0
+
+
+def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
+    """Phases 4-16 into ``record``; returns the names of those that drive a
+    method through its entry point (each reads K1's launch count around
+    its run)."""
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        record[name] = fn(*args)
+        record.setdefault("phase_s", {})[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {record['phase_s'][name]:.2f} s")
+        torch.cuda.empty_cache()
+
+    aln, newick, fasta, tree_path = _write_inputs(tmp)
+    timed("main_path", phase_main_path, torch, fasta, tree_path, tmp, full_fit)
+    data, mgp = record["main_path"].pop("data"), record["main_path"].pop("mg94_fit")
+    timed("parity", phase_parity, torch, aln, newick)
+    timed("sites", phase_sites, torch, data, mgp)
+    timed("fused_probes", phase_fused_probes, torch, data, mgp)
+    del data, mgp
+    timed("partitions", phase_partitions, torch, aln, newick, tmp, full_fit)
+    # phase 8 takes the fused Nelder-Mead probes: its CI is ~60 batched fits
+    # of 128 sites, where one evaluation is host launch time (PERF.md)
+    os.environ["HYPHY_TPU_NM_FUSED"] = "1"
+    log("[options] fused Nelder-Mead probes (HYPHY_TPU_NM_FUSED=1)")
+    try:
+        timed("options", phase_options, torch, tmp)
+    finally:
+        del os.environ["HYPHY_TPU_NM_FUSED"]
+    record["options"]["fused_probes"] = True
+    sim_aln, sim_fasta, sim_tree = _planted_alignment(tmp)
+    timed("slac", phase_slac, torch, sim_fasta, sim_tree, tmp)
+    timed("simulate", phase_simulate, torch, sim_aln, sim_fasta, sim_tree, tmp)
+    timed("meme", phase_meme, torch, sim_aln, sim_tree, tmp)
+    timed("fubar", phase_fubar, torch, sim_fasta, sim_tree, tmp)
+    timed("bstill", phase_bstill, torch, sim_aln, sim_tree, tmp)
+    con_aln, con_fasta, con_tree = _contrast_alignment(tmp)
+    timed("contrast_fel", phase_contrast_fel, torch, con_fasta, con_tree, tmp)
+    timed("contrast_meme", phase_contrast_meme, torch, con_aln, con_tree, tmp)
+    timed("meme_resample", phase_meme_resample, torch, sim_aln, sim_tree, tmp)
+    return ("main_path", "partitions", "options", "slac", "simulate", "meme", "fubar",
+            "bstill", "contrast_fel", "contrast_meme", "meme_resample")
 
 
 if __name__ == "__main__":

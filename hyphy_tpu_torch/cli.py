@@ -1,8 +1,9 @@
 """Command-line interface: ``python -m hyphy_tpu_torch <method> --alignment ...``.
 
 Counterpart of ``hyphy_tpu/cli.py`` for the ported methods (FEL, SLAC,
-MEME and ``simulate``), with the JAX parser's flags; it writes ``<alignment>.<METHOD>.json`` like
-the reference analyses do.  It runs on ``settings.device`` — the card,
+MEME, FUBAR, B-STILL, contrast-FEL, contrast-MEME and ``simulate``), with
+the JAX parser's flags; it writes ``<alignment>.<METHOD>.json`` like the
+reference analyses do.  It runs on ``settings.device`` — the card,
 raising without one; there is no device flag, as the JAX CLI has none.
 """
 
@@ -35,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
              "runs once without paying for the fits.  Usage: warmup fel "
              "--alignment ...",
     )
-    pw.add_argument("target", help="method to warm up (fel, slac, meme, simulate)")
+    pw.add_argument("target", help="method to warm up (fel, slac, meme, fubar, b-still, "
+                                   "contrast-fel, contrast-meme, simulate)")
     pw.add_argument("rest", nargs=argparse.REMAINDER,
                     help="arguments passed through to the method")
 
@@ -76,9 +78,50 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rates", type=int, default=2,
                    help="number of omega rate classes [2-4]")
     p.add_argument("--resample", type=int, default=0,
-                   help="parametric-bootstrap replicates for per-site p-values "
-                        "(not ported yet)")
+                   help="parametric-bootstrap replicates for per-site p-values")
     multihit_args(p)
+
+    def grid_args(p):
+        p.add_argument("--branches", default="All")
+        p.add_argument("--grid", type=int, default=20)
+        p.add_argument("--method", dest="posterior_method", default="Variational-Bayes",
+                       choices=["Variational-Bayes", "Collapsed-Gibbs"])
+        p.add_argument("--concentration_parameter", type=float, default=0.5)
+
+    p = sub.add_parser("fubar", help="Fast Unconstrained Bayesian AppRoximation")
+    common_args(p)
+    grid_args(p)
+
+    p = sub.add_parser(
+        "b-still",
+        help="Bayesian Significance Test of Invariant Low Likelihoods",
+    )
+    common_args(p)
+    grid_args(p)
+    p.add_argument("--non-zero", dest="non_zero", default="No",
+                   help="enforce non-zero synonymous rates on the grid")
+    p.add_argument("--ebf", type=float, default=10.0,
+                   help="EBF threshold for reporting proximal invariance")
+    p.add_argument("--radius-threshold", dest="radius_threshold", type=float,
+                   default=0.5,
+                   help="substitution-scale radius defining 'proximal to 0'")
+
+    def contrast_args(p):
+        common_args(p)
+        p.add_argument("--branch-set", dest="branch_sets", action="append",
+                       default=None, help="tested branch label (repeatable)")
+        p.add_argument("--srv", default="Yes")
+        p.add_argument("--pvalue", type=float, default=0.05)
+        p.add_argument("--qvalue", type=float, default=0.20)
+
+    contrast_args(sub.add_parser(
+        "contrast-fel", help="Tests for different selective pressures between branch sets"))
+    p = sub.add_parser(
+        "contrast-meme",
+        help="Tests for different episodic selective pressures between branch sets")
+    contrast_args(p)
+    p.add_argument("--permutations", type=int, default=0,
+                   help="permutation replicates for sites passing the LRT screen")
 
     p = sub.add_parser(
         "simulate",
@@ -149,6 +192,26 @@ def main(argv=None) -> int:
                           resample=args.resample,
                           multiple_hits=args.multiple_hits,
                           site_multihit=args.site_multihit)
+    elif args.method in ("fubar", "b-still"):
+        from hyphy_tpu_torch.methods import bstill, fubar
+
+        options = dict(grid_points=args.grid, method=args.posterior_method,
+                       concentration=args.concentration_parameter)
+        if args.method == "b-still":
+            options.update(non_zero=_bool(args.non_zero), ebf_threshold=args.ebf,
+                           radius_threshold=args.radius_threshold)
+        module = fubar if args.method == "fubar" else bstill
+        result = module.run(args.alignment, args.code, tree, args.branches, **options)
+    elif args.method in ("contrast-fel", "contrast-meme"):
+        from hyphy_tpu_torch.methods import contrast_fel, contrast_meme
+
+        options = dict(test_labels=args.branch_sets, srv=_bool(args.srv),
+                       pvalue=args.pvalue, qvalue=args.qvalue)
+        if args.method == "contrast-meme":
+            result = contrast_meme.run(args.alignment, args.code, tree,
+                                       permutations=args.permutations, **options)
+        else:
+            result = contrast_fel.run(args.alignment, args.code, tree, **options)
     else:
         from hyphy_tpu_torch.methods import simulate
 

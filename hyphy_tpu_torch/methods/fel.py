@@ -123,14 +123,17 @@ def site_log_likelihood(
     dtype: torch.dtype,
     spectral: bool,
     per_site_multihit: bool = False,
+    groups: Optional[np.ndarray] = None,
 ) -> Callable[..., torch.Tensor]:
     """FEL's per-site likelihood at the global MG94 fit ``mgp``.
 
     Returns ``loglik(idx [N], a [N], betas [N, G], delta=None, psi=None,
     states=None) -> [N]``: site ``idx[n]`` under branch generators
-    ``alpha_hat_b * (a_n Q_syn + beta_{n,g(b)} Q_nonsyn)``, with ``g(b)`` 0
-    on tested branches and 1 on background ones (G = 2 only when there are
-    background branches).  The bases are :func:`_site_bases`'.  ``states``:
+    ``alpha_hat_b * (a_n Q_syn + beta_{n,g(b)} Q_nonsyn)``.  ``groups``: the
+    ``[branches]`` group vector ``g`` in ``[0, G)`` (contrast-FEL's branch
+    sets); by default FEL's, 0 on tested branches and 1 on background ones
+    (G = 2 only when there are background branches).  The bases are
+    :func:`_site_bases`'.  ``states``:
     an ``[items, taxa]`` int table of codon states (-1: missing) indexed by
     ``idx`` in place of the data's leaf partials (the bootstrap's simulated
     columns); only the evaluated rows are made one-hot.  Generators are
@@ -140,12 +143,12 @@ def site_log_likelihood(
     """
     model = mgp.model
     device = model.device
-    tested = data.tested_branches
     bases = _site_bases(mgp, per_site_multihit)
     alpha_hat = torch.as_tensor(mgp.alphas, device=device).to(dtype)   # [B]
     freqs = model.frequencies.to(dtype)
-    group_of_branch = torch.as_tensor(np.where(tested, 0, 1), device=device)
-    has_background = bool((~tested).any())
+    groups = _branch_groups(data) if groups is None else np.asarray(groups)
+    group_of_branch = torch.as_tensor(groups, device=device)
+    n_groups = int(groups.max()) + 1
     rows = torch.arange(alpha_hat.shape[0], device=device)
     # [patterns, taxa, S]: the tree's leaves are in the filter's order
     data_leaves = torch.as_tensor(data.codon_filter.leaf_partials(), device=device)
@@ -159,17 +162,13 @@ def site_log_likelihood(
         m = fill_diagonal_from_rows(
             a[:, None, None, None] * qs[:, None] + betas[:, :, None, None] * qn[:, None]
         ).to(dtype)                                                  # [N, G, S, S]
-        if states is None:
-            leaf_vectors = data_leaves[idx]
-        else:
-            st = states[idx][..., None]                              # [N, taxa, 1]
-            leaf_vectors = ((st == codons) | (st < 0)).to(dtype)
+        leaf_vectors = leaf_rows(data_leaves, states, idx, codons)
         if spectral:
             left, lam, right = expm_ops.reversible_spectral(m, freqs)
             return pruning.single_site_log_likelihood_spectral(
                 left, lam, right, alpha_hat, group_of_branch, leaf_vectors, freqs, pdata)
         qn_, m2p, r, j = expm_ops.taylor_action_factors(m, alpha_hat)
-        if has_background:
+        if n_groups > 1:
             r, j = r[:, group_of_branch, rows], j[:, group_of_branch, rows]
         else:
             r, j = r[:, 0], j[:, 0]
@@ -179,14 +178,33 @@ def site_log_likelihood(
     return loglik
 
 
-def _site_bytes(data: common.LoadedData, dtype: torch.dtype, n_states: int) -> float:
+def leaf_rows(data_leaves: torch.Tensor, states, idx: torch.Tensor,
+              codons: torch.Tensor) -> torch.Tensor:
+    """``[N, taxa, S]`` leaf vectors of items ``idx``: the data's patterns
+    (``data_leaves`` ``[patterns, taxa, S]``), or with ``states`` (an
+    ``[items, taxa]`` int table, -1 missing) those rows made one-hot."""
+    if states is None:
+        return data_leaves[idx]
+    st = states[idx][..., None]                                      # [N, taxa, 1]
+    return ((st == codons) | (st < 0)).to(data_leaves.dtype)
+
+
+def _branch_groups(data: common.LoadedData) -> np.ndarray:
+    """FEL's group vector: 0 on tested branches, 1 on background ones."""
+    return np.where(data.tested_branches, 0, 1)
+
+
+def _site_bytes(data: common.LoadedData, dtype: torch.dtype, n_states: int,
+                n_groups: Optional[int] = None) -> float:
     """Working set of one site in a batched per-site evaluation: the
     ``[nodes, S]`` CLV buffer and a level's child messages and temporaries
-    (~8 buffers of it), plus each group's Taylor factors (ladder and powers,
-    ~14 ``[S, S]`` matrices).  The card measured 3.3 MB per site at 1000
-    taxa in fp32 (PERF.md); this gives 4.1 MB."""
+    (~8 buffers of it), plus each of the ``n_groups`` groups' Taylor factors
+    (ladder and powers, ~14 ``[S, S]`` matrices; by default FEL's count).
+    The card measured 3.3 MB per site at 1000 taxa in fp32 (PERF.md); this
+    gives 4.1 MB."""
     itemsize = torch.finfo(dtype).bits // 8
-    n_groups = 2 if (~data.tested_branches).any() else 1
+    if n_groups is None:
+        n_groups = int(_branch_groups(data).max()) + 1
     return itemsize * n_states * (8 * (data.tree.n_nodes + 1) + n_groups * 14 * n_states)
 
 
@@ -198,31 +216,22 @@ def _simulate_null_states(
     seed: int,
 ) -> np.ndarray:
     """``[patterns * n_reps, taxa]`` int16 states simulated under each
-    site's null fit (FEL.bf:805-820), -1 where a site is constant (not
-    simulated: its columns stay missing).  ``null``: the per-pattern null
-    rates ``alpha`` (common) and ``beta_nuisance``, and under per-site
-    multiple hits ``delta`` (and ``psi``).  Each non-constant site's
-    propagators ``expm(t_b (c Q_syn + beta_g(b) Q_nonsyn))``, over the
-    site's own bases (:func:`_site_bases`), are built on the model's device
-    in fp64 (shared-power Taylor, one generator per branch group),
-    ``_SIMULATION_CHUNK`` sites per copy to the host, where
-    :func:`simulate_states` draws them.  The draws keep the JAX package's
-    order: one generator from ``seed``, one call per site in site order."""
-    rng = np.random.default_rng(seed)
+    site's null fit (FEL.bf:805-820) by :func:`draw_site_columns`.
+    ``null``: the per-pattern null rates ``alpha`` (common) and
+    ``beta_nuisance``, and under per-site multiple hits ``delta`` (and
+    ``psi``).  Each non-constant site's propagators ``expm(t_b (c Q_syn +
+    beta_g(b) Q_nonsyn))``, over the site's own bases (:func:`_site_bases`),
+    are built on the model's device in fp64 (shared-power Taylor, one
+    generator per branch group)."""
     model = mgp.model
-    filt = data.codon_filter
-    n_patterns, n_taxa = filt.n_patterns, filt.n_sequences
     device = model.device
     f64 = dict(dtype=torch.float64, device=device)
-    groups = np.where(data.tested_branches, 0, 1)
+    groups = _branch_groups(data)
     branch_sets = [torch.as_tensor(np.nonzero(groups == g)[0], device=device)
                    for g in range(int(groups.max()) + 1)]
     mh_keys = [key for key in ("delta", "psi") if key in null]
     bases = _site_bases(mgp, per_site_multihit=bool(mh_keys))
     times = torch.as_tensor(mgp.alphas, **f64)
-    root_freqs = model.frequencies.cpu().numpy()
-    states = np.full((n_patterns * n_reps, n_taxa), -1, dtype=np.int16)
-    sites = np.nonzero(~filt.constant_pattern_mask())[0]
 
     def propagators(s):
         rates = (float(null["alpha"][s]), float(null["beta_nuisance"][s]))
@@ -234,6 +243,24 @@ def _simulate_null_states(
             p[branches] = expm_ops.shared_taylor_propagators(q, times[branches])
         return p
 
+    return draw_site_columns(data, mgp, propagators, n_reps, seed)
+
+
+def draw_site_columns(data: common.LoadedData, mgp: common.MG94Fit, propagators,
+                      n_reps: int, seed: int) -> np.ndarray:
+    """``[patterns * n_reps, taxa]`` int16 states: ``n_reps`` columns per
+    non-constant site drawn along the tree from ``propagators(s)`` (``[branches,
+    S, S]`` fp64 on the model's device) at the model's root frequencies, -1
+    where a site is constant (not simulated: its columns stay missing).  The
+    propagators reach the host ``_SIMULATION_CHUNK`` sites per copy, where
+    :func:`simulate_states` draws them in the JAX package's order: one
+    generator from ``seed``, one call per site in site order."""
+    rng = np.random.default_rng(seed)
+    filt = data.codon_filter
+    n_taxa = filt.n_sequences
+    root_freqs = mgp.model.frequencies.cpu().numpy()
+    states = np.full((filt.n_patterns * n_reps, n_taxa), -1, dtype=np.int16)
+    sites = np.nonzero(~filt.constant_pattern_mask())[0]
     for lo in range(0, len(sites), _SIMULATION_CHUNK):
         chunk = sites[lo: lo + _SIMULATION_CHUNK]
         with torch.no_grad():

@@ -25,8 +25,13 @@ Every stage fits all sites at once (batched grid, candidates and
 Nelder-Mead), in chunks by the device's free memory
 (:func:`chunked_site_solve`).  The per-site route follows the dtype, as in
 the reference: fp64 the spectral mixture, fp32 (the card's default) the
-Taylor vector action in its ``mix_weights`` mode.  The parametric
-bootstrap (``resample`` > 0) is not ported yet.
+Taylor vector action in its ``mix_weights`` mode.
+
+``resample`` > 0 replaces the mixture p-values by parametric-bootstrap ones
+(MEME.bf:1445-1470): ``resample`` columns are drawn under each non-constant
+site's null fit and the whole site pipeline (FEL, candidates, alternative,
+null) is refitted on them as one batch of ``patterns x resample`` items;
+p = (1 + #{LRT_sim >= LRT}) / (1 + N).
 """
 
 from __future__ import annotations
@@ -117,11 +122,16 @@ def mixture_sites(
     spectral: bool,
     rate_classes: int,
     per_site_multihit: bool = False,
+    states: Optional[torch.Tensor] = None,
 ) -> MixtureSites:
     """MEME's per-site likelihoods for one partition (see
     :class:`MixtureSites`), with the bases of :func:`fel._site_bases`.
     Generators are built in fp64 and cast to ``dtype``; ``spectral`` picks
-    the route (fp64 spectral mixture, else the Taylor mixture)."""
+    the route (fp64 spectral mixture, else the Taylor mixture).
+    ``states``: an ``[items, taxa]`` int table of codon states (-1:
+    missing) whose rows the items index in place of the data's patterns
+    (the bootstrap's simulated columns), as in
+    :func:`fel.site_log_likelihood`."""
     model = mgp.model
     device = model.device
     k = rate_classes
@@ -136,6 +146,7 @@ def mixture_sites(
     n_terms = expm_ops.taylor_action_terms(dtype)
     fel_loglik = fel.site_log_likelihood(data, mgp, dtype, spectral, per_site_multihit)
     tested_t = torch.as_tensor(tested, device=device)
+    codons = torch.arange(model.n_states, device=device)
 
     def generators(p):
         qs, qn = bases(p.get("delta"), p.get("psi"))
@@ -150,7 +161,7 @@ def mixture_sites(
     def loglik(idx, p, weights=None):
         m = generators(p)
         w = _class_weights(p, k, tested_t) if weights is None else weights
-        leaf_vectors = data_leaves[idx]
+        leaf_vectors = fel.leaf_rows(data_leaves, states, idx, codons)
         if spectral:
             left, lam, right = expm_ops.reversible_spectral(m, freqs)
             return pruning.single_site_log_likelihood_spectral_mixture(
@@ -163,7 +174,7 @@ def mixture_sites(
     def fel_obj(idx, p):
         betas = [p["beta_fg"]] + ([p["beta_bg"]] if has_background else [])
         return fel_loglik(idx, p["alpha"], torch.stack(betas, dim=1), p.get("delta"),
-                          p.get("psi"))
+                          p.get("psi"), states)
 
     # one evaluation item: the [nodes, S] CLV buffer and a level's messages
     # and temporaries (~8 buffers of it), plus each family's Taylor factors
@@ -294,40 +305,18 @@ def branch_ebfs(
     return np.where(degenerate[:, None], 1.0, ebf)
 
 
-def solve_partition(
-    data: common.LoadedData,
-    mgp: common.MG94Fit,
-    rate_classes: int = 2,
-    site_multihit: str = "Estimate",
-):
-    """The per-site stages of one partition: FEL fits, the alternative
-    mixture fits from the best of 8 candidate starts, the null fits, the
-    branch EBFs, the mixture p-values and the site table expanded from
-    patterns to sites.  Returns (site_table, headers)."""
-    k = rate_classes
-    filt = data.codon_filter
-    tested = data.tested_branches
-    has_background = bool((~tested).any())
-    n_patterns = filt.n_patterns
-    model = mgp.model
-    device = model.device
-    mh = model.multiple_hits != "None"
-    mh_triple = model.multiple_hits == "Double+Triple"
-    mh_est = mh and site_multihit == "Estimate"
-    delta_hat = float(mgp.params["delta"]) if mh else 0.0
-    psi_hat = float(mgp.params["psi"]) if mh_triple else 0.0
-    mh_rates = {}
-    if mh_est:
-        mh_rates["delta"] = delta_hat
-        if mh_triple:
-            mh_rates["psi"] = psi_hat
-    dtype = settings.likelihood_dtype(device)
-    sites = mixture_sites(data, mgp, dtype, spectral=dtype == torch.float64, rate_classes=k,
-                          per_site_multihit=mh_est)
-    fel_specs, meme_specs, null_specs = _specs(k, has_background, mh_rates)
+def site_pipeline(sites: MixtureSites, specs, mh_rates: Dict[str, float],
+                  has_background: bool, n_items: int, device):
+    """Stages 1-3 over ``n_items`` items (the data's patterns, or the
+    bootstrap's simulated columns): per-site FEL fits from the start grid,
+    the alternative mixture fits seeded from them per
+    meme.handle_a_site, then the null.  Returns (FEL fit, alternative,
+    null), each {parameter: [n], "lnl": [n]}."""
+    k = sites.rate_classes
+    fel_specs, meme_specs, null_specs = specs
     f64 = dict(dtype=torch.float64, device=device)
 
-    def solve(solver, n_items, item_bytes):
+    def solve(solver, item_bytes):
         return chunked_site_solve(solver, n_items, item_bytes, device)
 
     # -- stage 1: FEL ----------------------------------------------------------
@@ -338,8 +327,7 @@ def solve_partition(
     for key, val in mh_rates.items():
         grid[key] = torch.full((_FEL_GRID.shape[0],), val, **f64)
     common.progress("meme", "stage 1: per-site FEL fits")
-    fel_fit = solve(lambda idx: _fel_stage(sites, fel_specs, grid, idx), n_patterns,
-                    sites.fel_bytes)
+    fel_fit = solve(lambda idx: _fel_stage(sites, fel_specs, grid, idx), sites.fel_bytes)
     fa, fb, fbg = (fel_fit[key].double() for key in ("alpha", "beta", "beta_bg"))
 
     # -- stage 2: the alternative, seeded per meme.handle_a_site ---------------
@@ -362,7 +350,7 @@ def solve_partition(
         starts = _candidate_starts(sites, idx, {key: v[idx] for key, v in init.items()}, fb[idx])
         return _alternative_stage(sites, meme_specs, idx, starts)
 
-    alt = solve(alternative, n_patterns, sites.item_bytes)
+    alt = solve(alternative, sites.item_bytes)
 
     # -- stage 3: the null -----------------------------------------------------
     common.progress("meme", "stage 3: per-site null fits")
@@ -373,7 +361,122 @@ def solve_partition(
                           + 3.0 * torch.clamp_max(alt["beta_plus"], 100.0)) / 4.0
     null = solve(lambda idx: _null_stage(sites, null_specs, idx,
                                          {key: v[idx] for key, v in null_init.items()}),
-                 n_patterns, sites.item_bytes)
+                 sites.item_bytes)
+    return fel_fit, alt, null
+
+
+def simulate_null_states(
+    data: common.LoadedData,
+    mgp: common.MG94Fit,
+    null: Dict[str, np.ndarray],
+    rate_classes: int,
+    n_reps: int,
+    seed: int,
+    per_site_multihit: bool = False,
+) -> np.ndarray:
+    """``[patterns * n_reps, taxa]`` int16 states drawn under each
+    non-constant site's null fit (MEME.bf:1445-1470) by
+    :func:`fel.draw_site_columns`.  ``null``: the per-pattern null
+    parameters (``alpha``, ``omega_i``, ``w_i``, ``beta_bg`` with background
+    branches, ``delta``/``psi`` with per-site multiple hits).  Each site's
+    branch propagators are built on the model's device in fp64: one
+    shared-power Taylor series per family (the K classes with beta+ :=
+    alpha on the tested branches, the background family elsewhere), mixed
+    with the stick weights on the tested branches.  The JAX package builds
+    the same propagators with host ``scipy.linalg.expm``."""
+    k = rate_classes
+    model = mgp.model
+    device = model.device
+    f64 = dict(dtype=torch.float64, device=device)
+    tested = data.tested_branches
+    has_background = bool((~tested).any())
+    tested_idx = torch.as_tensor(np.nonzero(tested)[0], device=device)
+    background_idx = torch.as_tensor(np.nonzero(~tested)[0], device=device)
+    bases = fel._site_bases(mgp, per_site_multihit)
+    times = torch.as_tensor(mgp.alphas, **f64)
+
+    def propagators(s):
+        site = {key: torch.as_tensor(null[key][s: s + 1], **f64)
+                for key in ("delta", "psi") if per_site_multihit and key in null}
+        q_syn, q_non = (q[0].double() for q in bases(site.get("delta"), site.get("psi")))
+        a = float(null["alpha"][s])
+        betas = [float(null[f"omega_{i}"][s]) * a for i in range(1, k)] + [a]
+        w = _stick_weights(torch.as_tensor([float(null[f"w_{i}"][s]) for i in range(1, k)],
+                                           **f64))
+        p = torch.empty((times.shape[0],) + q_syn.shape, **f64)
+        mix = None
+        for c, beta in enumerate(betas):
+            term = w[c] * expm_ops.shared_taylor_propagators(
+                fill_diagonal_from_rows(a * q_syn + beta * q_non), times[tested_idx])
+            mix = term if mix is None else mix + term
+        p[tested_idx] = mix
+        if has_background:
+            bg = float(null["beta_bg"][s])
+            p[background_idx] = expm_ops.shared_taylor_propagators(
+                fill_diagonal_from_rows(a * q_syn + bg * q_non), times[background_idx])
+        return p
+
+    return fel.draw_site_columns(data, mgp, propagators, n_reps, seed)
+
+
+def bootstrap_lrts(data, mgp, sites: MixtureSites, specs, mh_rates, null, n_reps: int,
+                   seed: int, dtype, spectral: bool) -> np.ndarray:
+    """``[patterns, n_reps]`` LRTs of the whole site pipeline refitted on
+    ``n_reps`` columns simulated per site under its null fit ``null``
+    (:func:`simulate_null_states`); the states stay an int table on the
+    device, each evaluation making its chunk's rows one-hot."""
+    k = sites.rate_classes
+    device = mgp.model.device
+    common.progress("meme", f"parametric bootstrap: {n_reps} replicates/site")
+    null_np = {key: v.double().cpu().numpy() for key, v in null.items()}
+    states = simulate_null_states(data, mgp, null_np, k, n_reps, seed,
+                                  per_site_multihit=bool(mh_rates))
+    sim_sites = mixture_sites(data, mgp, dtype, spectral, k, per_site_multihit=bool(mh_rates),
+                              states=torch.as_tensor(states, device=device))
+    _, alt, sim_null = site_pipeline(sim_sites, specs, mh_rates,
+                                     bool((~data.tested_branches).any()), states.shape[0],
+                                     device)
+    lrt = 2.0 * (alt["lnl"].double() - sim_null["lnl"].double())
+    return np.maximum(lrt.cpu().numpy(), 0.0).reshape(-1, n_reps)
+
+
+def solve_partition(
+    data: common.LoadedData,
+    mgp: common.MG94Fit,
+    rate_classes: int = 2,
+    site_multihit: str = "Estimate",
+    resample: int = 0,
+    resample_seed: int = 0,
+):
+    """The per-site stages of one partition: FEL fits, the alternative
+    mixture fits from the best of 8 candidate starts, the null fits, the
+    branch EBFs, the mixture (or, with ``resample``, bootstrap) p-values
+    and the site table expanded from patterns to sites.  Returns
+    (site_table, headers)."""
+    k = rate_classes
+    filt = data.codon_filter
+    tested = data.tested_branches
+    has_background = bool((~tested).any())
+    n_patterns = filt.n_patterns
+    model = mgp.model
+    device = model.device
+    mh = model.multiple_hits != "None"
+    mh_triple = model.multiple_hits == "Double+Triple"
+    mh_est = mh and site_multihit == "Estimate"
+    delta_hat = float(mgp.params["delta"]) if mh else 0.0
+    psi_hat = float(mgp.params["psi"]) if mh_triple else 0.0
+    mh_rates = {}
+    if mh_est:
+        mh_rates["delta"] = delta_hat
+        if mh_triple:
+            mh_rates["psi"] = psi_hat
+    dtype = settings.likelihood_dtype(device)
+    spectral = dtype == torch.float64
+    sites = mixture_sites(data, mgp, dtype, spectral=spectral, rate_classes=k,
+                          per_site_multihit=mh_est)
+    specs = _specs(k, has_background, mh_rates)
+    fel_fit, alt, null = site_pipeline(sites, specs, mh_rates, has_background, n_patterns,
+                                       device)
 
     # -- stage 4: branch EBFs --------------------------------------------------
     common.progress("meme", "stage 4: branch EBFs")
@@ -383,7 +486,7 @@ def solve_partition(
     alpha, beta_plus, alt_lnl = fits["alt_alpha"], fits["alt_beta_plus"], fits["alt_lnl"]
     null_lnl = null["lnl"].double().cpu().numpy()
     fel_lnl = fel_fit["lnl"].double().cpu().numpy()
-    fa, fb = fa.cpu().numpy(), fb.cpu().numpy()
+    fa, fb = (fel_fit[key].double().cpu().numpy() for key in ("alpha", "beta"))
     omegas = [fits[f"alt_omega_{i}"] for i in range(1, k)]
     weights = _stick_weights(torch.stack([alt[f"w_{i}"] for i in range(1, k)], dim=-1))
     weights = weights.double().cpu().numpy().T                              # [K, n]
@@ -398,6 +501,13 @@ def solve_partition(
             0.45 * (1.0 - common.chi2_sf(x, 1)) + 0.55 * (1.0 - common.chi2_sf(x, 2)))
         for x in lrt
     ])
+    if resample > 0:
+        # MEME.bf:1662: p = (1 + #{LRT_sim >= LRT}) / (1 + N) over columns
+        # simulated under each site's null
+        lrt_sim = bootstrap_lrts(data, mgp, sites, specs, mh_rates, null, resample,
+                                 resample_seed, dtype, spectral)
+        hits = (lrt_sim >= lrt[:, None] - 1e-10).sum(axis=1)
+        pvals = np.where(condition, (hits + 1.0) / (resample + 1.0), 1.0)
     n_branches_sel = np.where(condition, (ebf >= 100.0).sum(axis=1).astype(float), 0.0)
 
     # total tested branch length at the alternative fit
@@ -473,15 +583,12 @@ def run(
     """MEME on one codon alignment (CHARSET partitions: one site table
     each), on ``device`` (default ``settings.device``: the card, raising
     without one).  The signature is the JAX package's; ``pvalue`` is
-    accepted and, as there, not used by the fit.  ``resample`` > 0 (the
-    parametric bootstrap, MEME.bf:1445-1470) raises: it is not ported yet
-    (ROADMAP.md, queue 1)."""
+    accepted and, as there, not used by the fit.  ``resample`` > 0:
+    per-site parametric-bootstrap p-values over that many columns simulated
+    under each site's null fit from ``resample_seed``
+    (MEME.bf:1445-1470)."""
     if not (2 <= rate_classes <= 4):
         raise ValueError("rate_classes must be in [2, 4] (MEME.bf:135)")
-    if resample > 0:
-        raise NotImplementedError(
-            "MEME --resample (the parametric bootstrap) is not ported yet; "
-            "see ROADMAP.md, queue 1")
     md = common.load_codon_data_multi(alignment, genetic_code, tree, branches, device=device)
     common.progress("meme", f"{md.n_partitions} partition(s); fitting nucleotide GTR")
     gtr = common.fit_gtr_multi(md, precision=precision)
@@ -494,7 +601,8 @@ def run(
     content = {}
     tables = []
     for p_idx, (pdat, mgp) in enumerate(zip(md.parts, mg.parts)):
-        tables.append(solve_partition(pdat, mgp, rate_classes, site_multihit))
+        tables.append(solve_partition(pdat, mgp, rate_classes, site_multihit, resample,
+                                      resample_seed))
         content[str(p_idx)] = tables[-1][0].tolist()
     site_table, headers = tables[0]
 

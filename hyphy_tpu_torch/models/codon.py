@@ -156,6 +156,14 @@ class MG94Base(SubstitutionModel):
         rn = q_non.sum(-1) @ pi
         return (alpha_b * rs + beta_b * rn) / 3.0
 
+    def syn_nonsyn_unit_rates(self, params: Params):
+        """(rate_syn, rate_nonsyn) per unit alpha / beta at ``params``'
+        thetas: the single-hit bases' row sums weighted by the codon
+        frequencies (FUBAR's and B-STILL's branch scaling)."""
+        q_syn, q_non = self.basis_matrices(params)
+        pi = self.frequencies.to(q_syn.dtype)
+        return q_syn.sum(-1) @ pi, q_non.sum(-1) @ pi
+
     # -- multiple instantaneous hits (MG_REV_MH.bf / MG_REV_TRIP.bf) --------
 
     def _multihit_tables(self):

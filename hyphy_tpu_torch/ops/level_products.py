@@ -109,7 +109,6 @@ def _check(cc: torch.Tensor, cp: torch.Tensor) -> None:
 
 
 def _launch(cc: torch.Tensor, cp: torch.Tensor) -> torch.Tensor:
-    _check(cc, cp)
     w, k, p, s = cc.shape
     plan = _launch_plan(w, k, p, s, cc.dtype)
     out = torch.empty((w, p, s), dtype=cc.dtype, device=cc.device)
@@ -129,6 +128,9 @@ def _launch(cc: torch.Tensor, cp: torch.Tensor) -> torch.Tensor:
 class _LevelProducts(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cc, cp):
+        # the kernel's limits hold on every device, so that a caller the CPU
+        # runs meets them as the card would
+        _check(cc, cp)
         ctx.save_for_backward(cc, cp)
         if cc.is_cuda:
             return _launch(cc, cp)

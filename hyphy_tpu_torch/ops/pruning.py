@@ -3,7 +3,9 @@
 Counterpart of the gene path of ``hyphy_tpu/ops/pruning.py``: the exact-
 width unrolled variant (``_site_log_likelihoods_unrolled``), with every
 level's sibling product going through the K1 kernel
-(:func:`hyphy_tpu_torch.ops.level_products.level_products`); and the
+(:func:`hyphy_tpu_torch.ops.level_products.level_products`), also in a
+grid form that prunes many propagator sets over the same leaves at once
+(FUBAR's and B-STILL's grids); and the
 per-site routes FEL and MEME fit sites with, batched over sites, on the
 same schedule: ``single_site_log_likelihood_taylor`` (with its
 ``mix_weights`` mode), ``single_site_log_likelihood_spectral`` and
@@ -46,7 +48,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from hyphy_tpu_torch.ops.level_products import level_products
+from hyphy_tpu_torch.ops.level_products import _MAX_NODES, level_products
 from hyphy_tpu_torch.tree.topology import Tree
 
 # source id of the all-ones scratch row gathered by padded child slots
@@ -164,8 +166,42 @@ def _level_plan(child_storage, child_branch, source_of, row_of, n_nodes, device)
     return LevelPlan(pieces, perm, branch, slots, site_slots, site_branches)
 
 
+def _launch_rows(plan: LevelPlan) -> int:
+    """K1's node rows for one grid point at this level: the nodes, or for
+    nodes wider than ``_CHUNK`` children their chunks."""
+    w, k = plan.child_branch.shape
+    return w if k <= _CHUNK else w * k // _CHUNK
+
+
+def max_grid_points(data: PruningData) -> int:
+    """The most grid points one call of the grid form of
+    :func:`site_log_likelihoods` may fold, so that every level's K1 launch
+    stays within ``_MAX_NODES`` rows (``W = G x width``)."""
+    return max(1, _MAX_NODES // max(_launch_rows(plan) for plan in data.plans))
+
+
+def grid_point_bytes(data: PruningData, patterns: int, states: int, itemsize: int) -> float:
+    """One grid point's peak working set in the grid form of
+    :func:`site_log_likelihoods`, in bytes: every level's output is kept
+    until the root, and at each level the children gathered from earlier
+    levels, their join (or the copy of the shared leaves) and its
+    reordering live beside K1's product and its renormalised copy, with a
+    wide node's chunk products and their pairwise combination on top."""
+    kept, peak = 0, 0
+    for plan in data.plans:
+        w, k = plan.child_branch.shape
+        rows = sum(len(r) for src, r in plan.pieces if src > 0)
+        shared = len(plan.pieces) == 1 and plan.pieces[0][0] <= 0
+        rows += w * k * (int(len(plan.pieces) > 1 or (shared and plan.perm is None))
+                         + int(plan.perm is not None))
+        chunked = 3 * w * k // _CHUNK if k > _CHUNK else 0
+        peak = max(peak, kept + rows + 2 * w + chunked)
+        kept += w
+    return float(peak * patterns * states * itemsize)
+
+
 def site_log_likelihoods(
-    p_matrices: torch.Tensor,     # [n_nodes(+1), S, S]; row above each node
+    p_matrices: torch.Tensor,     # [n_nodes(+1), S, S], or [G, n_nodes(+1), S, S]
     leaf_partials: torch.Tensor,  # [n_leaves, patterns, S]
     root_freqs: torch.Tensor,     # [S]
     data: PruningData,
@@ -175,50 +211,92 @@ def site_log_likelihoods(
     ``p_matrices`` may have ``n_nodes`` rows (root row unused) or
     ``n_nodes + 1``; the row at the scratch index is the identity, so padded
     child slots are no-ops.
+
+    Grid form: ``p_matrices`` ``[G, n_nodes(+1), S, S]``, one propagator
+    set per grid point over the same leaves, gives ``[G, patterns]`` (the
+    JAX package ``vmap``s the one-set form, ``fubar.py:122-129``).  Each
+    level folds the grid into K1's node axis, ``W = G x width``, so a
+    level costs one launch for the whole grid.  Its log-scale sums over a
+    level's nodes and its root sum over states go by pairwise halving
+    (:func:`_halving_sum`), so that a grid point's values do not depend on
+    how many points share the call.  The one-set form keeps its
+    reductions.
+
+    The clamp at ``finfo.tiny``.  The grid form does not clamp the root
+    likelihood: a pattern that a grid point cannot produce (at alpha or
+    beta 0 some codons are unreachable, and the Taylor propagators keep
+    those entries exactly 0) gets -inf, HyPhy's conditional likelihood of
+    0.  The clamp's floor, log(tiny) = -87 in fp32, lies above every real
+    site lnL of a large tree (1000 taxa: hundreds of lnL units below it),
+    so such a point would win FUBAR's scaling pass (ROADMAP 3.11).  The
+    one-set form keeps the clamp, because the GTR and MG94 fits that
+    differentiate it are held to the JAX package's fits, which clamp: where
+    a line search probes a rate near 0, patterns of likelihood 0 score the
+    floor with a zero gradient there, and an unclamped -inf would end the
+    step as non-finite instead, so the two packages' fits would part.  No
+    grid is differentiated and no fit runs on the grid form.
     """
+    grid = p_matrices.dim() == 4
+    p_grid = p_matrices if grid else p_matrices[None]
     n_nodes = data.n_nodes
+    n_grid = p_grid.shape[0]
     patterns, states = leaf_partials.shape[1], leaf_partials.shape[2]
     dtype, device = leaf_partials.dtype, leaf_partials.device
 
-    p_own = p_matrices[:n_nodes].to(dtype)
+    def node_sum(x):                                       # [G, W, patterns] -> [G, patterns]
+        return _halving_sum(x, 1) if grid else torch.sum(x, dim=1)
+
+    p_own = p_grid[:, :n_nodes].to(dtype)
     eye = torch.eye(states, dtype=dtype, device=device)
-    pad = eye.expand(n_nodes + 1 - p_own.shape[0], states, states)
-    p_all = torch.cat([p_own, pad], dim=0)                 # [n_nodes + 1, S, S]
+    pad = eye.expand(n_grid, n_nodes + 1 - p_own.shape[1], states, states)
+    p_all = torch.cat([p_own, pad], dim=1)                 # [G, n_nodes + 1, S, S]
     scratch = torch.ones((1, patterns, states), dtype=dtype, device=device)
+
+    def gather(source, rows):                              # -> [G, n, patterns, S]
+        if source == _SCRATCH:
+            return scratch.index_select(0, rows).expand(n_grid, -1, -1, -1)
+        if source == 0:
+            return leaf_partials.index_select(0, rows).expand(n_grid, -1, -1, -1)
+        return outputs[source].index_select(1, rows)
 
     outputs = [leaf_partials]
     # the running log-scale sums ~O(tree depth) terms to a large magnitude;
     # accumulate in fp64 (per-level log/sum stay in the compute dtype) so an
     # fp32 CLV path does not quantize site lnL at the accumulator
-    log_scale = torch.zeros((patterns,), dtype=torch.float64, device=device)
+    log_scale = torch.zeros((n_grid, patterns), dtype=torch.float64, device=device)
     for plan in data.plans:
         w, k = plan.child_branch.shape
-        gathered = [
-            (scratch if s == _SCRATCH else outputs[s]).index_select(0, rows)
-            for s, rows in plan.pieces
-        ]
-        cc = gathered[0] if len(gathered) == 1 else torch.cat(gathered, dim=0)
+        gathered = [gather(s, rows) for s, rows in plan.pieces]
+        cc = gathered[0] if len(gathered) == 1 else torch.cat(gathered, dim=1)
         if plan.perm is not None:
-            cc = cc.index_select(0, plan.perm)
-        cp = p_all[plan.child_branch]                      # [W, K, S, S]
+            cc = cc.index_select(1, plan.perm)
+        cc = cc.reshape(n_grid * w, k, patterns, states)
+        cp = p_all[:, plan.child_branch].reshape(n_grid * w, k, states, states)
         if k <= _CHUNK:
-            prod = level_products(cc.reshape(w, k, patterns, states), cp)   # [W, patterns, S]
+            prod = level_products(cc, cp).reshape(n_grid, w, patterns, states)
         else:
             # one launch for every chunk of every node, then the chunks combined
-            chunks = level_products(cc.reshape(w * k // _CHUNK, _CHUNK, patterns, states),
-                                    cp.reshape(w * k // _CHUNK, _CHUNK, states, states))
-            prod, logs = _chunked_product(chunks.reshape(w, k // _CHUNK, patterns, states), 1)
-            log_scale = log_scale + torch.sum(logs, dim=0).to(torch.float64)
+            chunks = level_products(cc.reshape(n_grid * w * k // _CHUNK, _CHUNK, patterns, states),
+                                    cp.reshape(n_grid * w * k // _CHUNK, _CHUNK, states, states))
+            prod, logs = _chunked_product(
+                chunks.reshape(n_grid, w, k // _CHUNK, patterns, states), 2)
+            log_scale = log_scale + node_sum(logs).to(torch.float64)
         mx = torch.amax(prod, dim=-1, keepdim=True)
         mx = torch.where(mx > 0, mx, torch.ones((), dtype=dtype, device=device))
         outputs.append(prod / mx)
-        log_scale = log_scale + torch.sum(torch.log(mx[..., 0]), dim=0).to(torch.float64)
+        log_scale = log_scale + node_sum(torch.log(mx[..., 0])).to(torch.float64)
+        del gathered, cc, cp, prod, mx     # a level's temporaries die with it
 
     # the root is the last node of the last level
-    root_like = outputs[-1][-1] @ root_freqs.to(dtype)    # [patterns]
-    tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=device)
-    root_like = torch.maximum(root_like, tiny)
-    return torch.log(root_like.to(torch.float64)) + log_scale
+    root = outputs[-1][:, -1]                              # [G, patterns, S]
+    if grid:
+        root_like = _halving_sum(root * root_freqs.to(dtype))
+    else:
+        root_like = root @ root_freqs.to(dtype)            # [G, patterns]
+        tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=device)
+        root_like = torch.maximum(root_like, tiny)
+    out = torch.log(root_like.to(torch.float64)) + log_scale
+    return out if grid else out[0]
 
 
 def total_log_likelihood(site_loglik: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -364,6 +442,17 @@ class _TaylorAction:
         return acc
 
 
+def dense_mixture_weights(weights: torch.Tensor, families: torch.Tensor,
+                          n_families: int) -> torch.Tensor:
+    """``[N, B, M]`` dense family weights from per-item components: branch
+    ``b`` of item ``n`` puts ``weights[n, b, c]`` on family ``families[n, b,
+    c]`` (the JAX package's ``(comp_index, cw)`` pairs, here one map per
+    item: contrast-MEME's permutations give every item its own
+    branch-to-set map)."""
+    dense = weights.new_zeros(weights.shape[:2] + (n_families,))
+    return dense.scatter_add(2, families.to(torch.int64), weights)
+
+
 def _taylor_mixture(qn, m2p, r, j, n_terms, leaf_vectors, root_freqs, data, mix_weights):
     """The ``mix_weights`` mode of :func:`single_site_log_likelihood_taylor`."""
     n_nodes = data.n_nodes
@@ -421,7 +510,9 @@ def single_site_log_likelihood_taylor(
     ``r`` and ``j`` are ``[N, n_branches, G]``, one per (branch, family),
     each family walks its own ladder bits, and the message is the weighted
     sum of every family's action (``group_of_branch`` is unused).  Padded
-    children act with family 0 at r = 0, j = 0: the identity.
+    children act with family 0 at r = 0, j = 0: the identity.  The table
+    is per item, so each item may map branches to families its own way
+    (:func:`dense_mixture_weights`).
 
     The ladder walks as many bits as the largest ``j`` of the level's
     branches over the whole batch sets, the trip count of the reference's
@@ -527,9 +618,10 @@ def single_site_log_likelihood_spectral_mixture(
 
     The JAX package takes (family index, weight) pairs per branch component
     and makes them the dense ``[branches, M]`` table it works with; here the
-    caller passes that table per site.  Every family's message is computed
-    for every child and summed with the weights; padded children take
-    family 0 at time 0, the identity.
+    caller passes that table per site (one branch-to-family map per item:
+    :func:`dense_mixture_weights`).  Every
+    family's message is computed for every child and summed with the
+    weights; padded children take family 0 at time 0, the identity.
     """
     n_nodes = data.n_nodes
     n_sites = leaf_vectors.shape[0]

@@ -48,7 +48,8 @@ def test_fel_flags_match_the_jax_cli():
     assert _fel_flags(cli.build_parser()) == _fel_flags(jcli.build_parser())
 
 
-@pytest.mark.parametrize("method", ["slac", "meme", "simulate"])
+@pytest.mark.parametrize("method", ["slac", "meme", "simulate", "fubar", "b-still",
+                                    "contrast-fel", "contrast-meme"])
 def test_method_flags_match_the_jax_cli(method):
     assert _fel_flags(cli.build_parser(), method) == _fel_flags(jcli.build_parser(), method)
 

@@ -25,13 +25,17 @@ print("LEAKED", leaked)
 print("LOADED", sorted(m for m in sys.modules if m.startswith("hyphy_tpu_torch.")))
 """
 
-# modules added with FEL's options and CHARSET partitions, and with SLAC,
-# MEME and simulate, which the walk above must reach
+# modules added with FEL's options and CHARSET partitions, with SLAC, MEME
+# and simulate, and with FUBAR, B-STILL and the contrast methods, which the
+# walk above must reach
 _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batched",
                 "hyphy_tpu_torch.methods.fel", "hyphy_tpu_torch.io.json_out",
                 "hyphy_tpu_torch.ops.ancestral", "hyphy_tpu_torch.methods.counting",
                 "hyphy_tpu_torch.methods.slac", "hyphy_tpu_torch.methods.meme",
-                "hyphy_tpu_torch.methods.simulate", "hyphy_tpu_torch.utils.synth"]
+                "hyphy_tpu_torch.methods.simulate", "hyphy_tpu_torch.utils.synth",
+                "hyphy_tpu_torch.methods.grid_bayes", "hyphy_tpu_torch.methods.fubar",
+                "hyphy_tpu_torch.methods.bstill", "hyphy_tpu_torch.methods.contrast_fel",
+                "hyphy_tpu_torch.methods.contrast_meme"]
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -136,3 +140,37 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path, method):
     # asking for the CPU is the only way onto it
     result = module.run(str(fasta), tree=newick, device="cpu")
     assert "fits" in result.json
+
+
+@pytest.mark.parametrize("method", ["fubar", "b-still", "contrast-fel", "contrast-meme"])
+def test_grid_and_contrast_entry_points_raise_without_cuda(monkeypatch, tmp_path, method):
+    """FUBAR, B-STILL and the contrast methods through the CLI, plain and
+    under ``warmup``: they raise without CUDA, and run on the CPU only when
+    asked (here the capped ``warmup`` run, on a labelled 5-taxon tree)."""
+    import json
+
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.utils.synth import synthetic_codon_alignment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(settings, "device", "cuda")
+    monkeypatch.setenv("HYPHY_TPU_PROGRESS", "0")
+    aln = synthetic_codon_alignment(5, 4, seed=2)
+    fasta = tmp_path / "a.fasta"
+    fasta.write_text("".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
+    newick = "((t0{FG}:0.1,t1{FG}:0.2){FG}:0.05,(t2{REF}:0.1,t3:0.15):0.1,t4:0.2)"
+    out = tmp_path / "a.json"
+    argv = [method, "--alignment", str(fasta), "--tree", newick, "--output", str(out)]
+    argv += {"fubar": ["--grid", "5"], "b-still": ["--grid", "5"],
+             "contrast-fel": ["--branch-set", "FG", "--branch-set", "REF"],
+             "contrast-meme": ["--branch-set", "FG", "--branch-set", "REF",
+                               "--permutations", "1", "--pvalue", "1"]}[method]
+    for prefix in ([], ["warmup"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(prefix + argv)
+        assert not out.exists()
+    # asking for the CPU is the only way onto it
+    monkeypatch.setattr(settings, "device", "cpu")
+    assert cli.main(["warmup"] + argv) == 0
+    assert "fits" in json.loads(out.read_text())

@@ -8,7 +8,7 @@
   forced mixture likelihoods computed with the JAX package's route.
 * ``meme.run`` at K = 2 with the JAX run's GTR and MG94 fits carried
   across (``tests/test_torch_meme_options.py`` has K = 3 with background
-  branches and multiple hits), and ``resample`` > 0 raising.
+  branches and multiple hits, and ``resample``).
 
 The fixture is an alignment simulated along a 6-taxon tree with two sites
 under omega = 8, shared by the tests of both files."""
@@ -269,9 +269,3 @@ def test_branch_ebfs_match(k2_runs):
     # chunks of 7 items and one batch of all items give the same EBFs
     whole = meme.branch_ebfs(sites, alt, tested_idx, sites_idx=torch.tensor(sites_idx))
     np.testing.assert_array_equal(ebf, whole)
-
-
-def test_resample_raises(tmp_path):
-    fasta, newick = write_fixture(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        meme.run(fasta, tree=newick, resample=5, device="cpu")

@@ -1,6 +1,6 @@
 """The port's multiple-hit MG94 model and FEL's ``--multiple-hits`` against
 the JAX package's, on the tiny fixture of ``tests/test_torch_fel.py``
-(6 taxa x 20 codons, seed 11), in fp64.
+cut to 12 codons (6 taxa, seed 11), in fp64.
 
 * The 2- and 3-hit basis matrices, the folded bases and branch lengths at
   the same parameters.
@@ -33,7 +33,7 @@ from tests.torch_carry import (carried_gtr, carried_mg94, carry_into, spy_fits,
 
 torch.set_num_threads(2)
 
-N_TAXA, N_CODONS, SEED = 6, 20, 11
+N_TAXA, N_CODONS, SEED = 6, 12, 11
 MATRIX_ATOL = 1e-12      # basis matrices and branch lengths, fp64
 FIT_ATOL = 1e-3          # fitted global lnL
 # (multiple_hits, site_multihit)

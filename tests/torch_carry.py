@@ -133,3 +133,88 @@ def write_simulated_fasta(path, n_taxa, n_codons, seed):
     names, seqs = states_to_alignment(states, tree, "codon", gc)
     path.write_text("".join(f">{n}\n{s}\n" for n, s in zip(names, seqs)))
     return str(path), newick
+
+
+def _clade_members(tree, node):
+    """Node ids of the subtree under ``node`` (``node`` included)."""
+    out, stack = [], [node]
+    while stack:
+        nd = stack.pop()
+        out.append(nd)
+        stack.extend(tree.children[nd])
+    return out
+
+
+def pick_clades(tree, sizes):
+    """Disjoint clades, one per target leaf count in ``sizes``: for each in
+    turn, the non-root node whose leaf count is nearest (lowest id on
+    ties) among those outside and not above the clades already taken.
+    Returns the clades' node lists."""
+    leaves = {nd: sum(1 for m in _clade_members(tree, nd) if tree.is_leaf(m))
+              for nd in range(tree.n_nodes) if nd != tree.root}
+    taken, clades = set(), []
+    for size in sizes:
+        free = [nd for nd in leaves
+                if not set(_clade_members(tree, nd)) & taken
+                and not any(nd in _clade_members(tree, c[0]) for c in clades)]
+        best = min(free, key=lambda nd: (abs(leaves[nd] - size), nd))
+        clades.append(_clade_members(tree, best))
+        taken |= set(clades[-1])
+    return clades
+
+
+def labelled_newick(tree, lengths, node_labels):
+    """``tree`` as newick with ``lengths`` per branch and ``{label}`` after
+    the name of every node in ``node_labels`` (node id -> label)."""
+    def fmt(nd):
+        base = tree.names[nd] if tree.is_leaf(nd) else (
+            "(" + ",".join(fmt(c) for c in tree.children[nd]) + ")" + tree.names[nd])
+        if nd in node_labels:
+            base += "{" + node_labels[nd] + "}"
+        if nd != tree.root:
+            base += f":{lengths[nd]:.6f}"
+        return base
+
+    return fmt(tree.root)
+
+
+def contrast_alignment(n_taxa, n_codons, seed, clade_sizes, labels, planted,
+                       fg_omega=5.0, omega=0.3, kappa=2.5, mean_branch=0.05):
+    """A codon alignment for the contrast methods: disjoint clades of
+    ``random_tree_newick(n_taxa, seed, mean_branch)`` near ``clade_sizes`` leaves
+    labelled ``labels`` (every branch of a clade, its stem included; the
+    other branches are background), codons simulated along it with
+    ``utils/simulate.py::simulate_states`` under MG94-style propagators
+    (``synth._mg94_generator``'s unit-rate generator at omega ``omega``)
+    everywhere, except omega ``fg_omega`` at the same synonymous rate on the
+    first label's branches at the ``planted`` codons.
+    Returns (names, sequences, labelled newick)."""
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch.utils import synth
+
+    gc = GeneticCode("Universal")
+    tree = Tree.from_newick(random_tree_newick(n_taxa, seed=seed, mean_branch=mean_branch))
+    lengths = np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6)
+    clades = pick_clades(tree, clade_sizes)
+    node_labels = {nd: lbl for lbl, clade in zip(labels, clades) for nd in clade}
+    pi = np.full(gc.n_states, 1.0 / gc.n_states)
+    slow = synth._mg94_generator(gc, kappa, omega)
+    # omega fg_omega at the same synonymous rate: the non-synonymous entries
+    # of the unit-rate omega generator scaled by fg_omega / omega
+    amino = np.array(list(gc.translation))[np.asarray(gc.sense_codons)]
+    nonsyn = amino[:, None] != amino[None, :]
+    fast = np.where(nonsyn, slow * (fg_omega / omega), slow)
+    np.fill_diagonal(fast, 0.0)
+    fast -= np.diag(fast.sum(axis=1))
+    base = np.stack([sla.expm(slow * t) for t in lengths])
+    selected = base.copy()
+    for nd in clades[0]:
+        selected[nd] = sla.expm(fast * lengths[nd])
+    rng = np.random.default_rng(seed)
+    cols = np.setdiff1d(np.arange(n_codons), planted)
+    states = np.zeros((tree.n_nodes, n_codons), dtype=np.int32)
+    states[:, cols] = simulate_states(tree, base, pi, len(cols), rng)
+    states[:, list(planted)] = simulate_states(tree, selected, pi, len(planted), rng)
+    names, seqs = states_to_alignment(states, tree, "codon", gc)
+    return names, seqs, labelled_newick(tree, lengths, node_labels)
