@@ -4,6 +4,7 @@
     python3 chip_smoke.py                    # every phase; FEL as `warmup fel` (capped fits)
     python3 chip_smoke.py --full-fit         # the same, with FEL's fits run to convergence
     python3 chip_smoke.py --precision-check  # phases 1-3, then FEL's fp32 vs fp64 site calls
+    python3 chip_smoke.py --busted-check     # phases 1-3, then BUSTED uncapped in fp32 and fp64
 
 Run from the root of a checkout; it builds the CUDA kernels from the
 checkout's sources.  Phases, each of which fails the run if it fails:
@@ -59,7 +60,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      the JSON (headers, finite tables, 2.5% <= median <= 97.5%);
  10. ``warmup simulate --replicates 2`` on phase 9's alignment: the
      replicates have its taxa and codons;
- 11. MEME on phase 9's alignment cut to 512 codons (the EBF's items grow
+ 11. MEME on phase 9's alignment cut to 256 codons (the EBF's items grow
      with codons x tested branches), through ``warmup meme``: seconds per
      stage (FEL, candidates, alternative, null, EBF), the EBF's items and
      chunks, K1 launches, one batched mixture evaluation timed and
@@ -84,7 +85,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      planted codons at p <= 0.1, the per-site lnL card vs host (fp64
      Taylor, 64 sites) and fp32 vs fp64, the substitution counts card vs
      host (equal);
- 15. contrast-MEME on that alignment cut to 512 codons, ``warmup
+ 15. contrast-MEME on that alignment cut to 256 codons, ``warmup
      contrast-meme ... --permutations 5``: seconds per stage (alternative,
      null, pairwise, permutations), the solves' items and chunks, K1
      launches; the mixture site lnL with per-item permuted set maps card vs
@@ -94,13 +95,50 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      multiples of 1/6, the card's fp64 family propagators of two sites
      against ``scipy.linalg.expm`` on three branches (1e-10).
 
-``--precision-check`` runs phases 1-3 and then, in place of phases 4-16,
+ 17. PRIME at full width on phase 9's alignment, ``warmup prime``: seconds
+     per stage (load, GTR, MG94, grid, the full fit, the five nulls,
+     JSON), ms per batched site evaluation, K1 launches, peak memory; the
+     per-site objective card vs host (fp64 Taylor, 64 sites, 1e-9, one
+     point at |lambda| = 10) and fp32 vs fp64 on every pattern (0.03); the
+     JSON's 18 columns and p in [0, 1];
+ 18. BUSTED at full width on phase 9's alignment, ``warmup busted`` (SRV
+     3 x 3, 2 starting points): seconds per stage, ms per value and
+     gradient of the mixture lnL, K1 launches per evaluation (one per
+     level for all three SRV classes), peak memory; the site lnL at the
+     fitted point card vs host (fp64 Taylor, 64 patterns, 1e-9 relative;
+     fp64 spectral, 1e-6 relative, finite and below 0, also with a
+     synonymous-rate class at time 1e16), fp32 Taylor vs fp64 spectral (0.03 per pattern, 10 on the lnL), the
+     folded classes equal to each class pruned alone; the --srv-hmm,
+     --srv-branchsite and --multiple-hits Double+Triple objectives card vs
+     host at the same point; LRT >= 0, p in [0, 1], finite evidence
+     ratios, the JSON's keys;
+ 19. ``warmup busted --error-sink`` on phase 9's alignment cut to 512
+     codons, then ``error-filter`` on its JSON: the seconds of the
+     branch-pinned site lnLs; class posteriors summing to 1, the pinned
+     site lnLs re-mixed with the fitted weights equal to the site lnL
+     (1e-5 relative), every masked sequence of full length;
+ 20. ``warmup busted-ph --branches FG`` on phase 14's alignment cut to 512
+     codons, then ``clade-support`` on its JSON: seconds per test, three p
+     in [0, 1], a perplexity >= 1.
+
+``--precision-check`` runs phases 1-3 and then, in place of phases 4-20,
 FEL's per-site stage on phase 8's input at one capped global fit, run to
 convergence in fp32 and in fp64: the same p <= 0.1 set, and alpha and beta
-within the stated tolerance at all but 5% of the sites.
+within the stated tolerance at all but 5% of the sites.  ``--busted-check``
+runs phases 1-3 and then BUSTED with its fits run to convergence, in fp32
+and in fp64, on phase 18's input cut to 1024 codons, on bench.py's
+alignment cut to 256 codons and on an episodic positive control (128
+codons, omega 20 on a random 5% of the branches in each block of 64
+codons): each fit's lnL, iterations, restarts, seconds and why it stopped;
+every lnL finite and below 0, the unconstrained no lower than the
+constrained; on the planted input in fp64, the fit at or above every
+point of a scan near the planted truth; the two precisions within 10 lnL
+and calling alike; p <= 0.05 on the control.  Every input runs; the phase
+fails after the last if one failed.
 
 K1's ``launches`` on the kernels line sum the phases that drive a method
-(4, 7-16, or the precision check), each counted from 0 around its run.  It
+(4, 7-20, or the precision or BUSTED check), each counted from 0 around
+its run.  It
 imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
 and ``{"ok": true, "device": {...}}``; a longer record goes to
@@ -190,7 +228,7 @@ PLANTED_SITES, PLANTED_OMEGA = [37, 101, 190, 263, 333, 402, 475, 1100, 1700], 5
 SLAC_SAMPLES, SLAC_HOST_PATTERNS, SLAC_LNL_REL_BOUND = 10, 512, 1e-9
 # phase 11: MEME's codons (the EBF's items grow with codons x tested
 # branches: ~1.02 M at 512); sites and forced items per chunk of the split
-MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 512, 64, 997
+MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 256, 64, 997
 # phase 12: FUBAR's grid (points per axis); grid points held fp32 vs fp64
 # (alpha > 0 and beta > 0: where alpha or beta is 0 the fp64 spectral route
 # gives round-off for unreachable codons, ROADMAP 3.5) and folded vs one by
@@ -206,12 +244,49 @@ FORCED_PATTERNS = 64   # B-STILL's pass 2 again with the chunk forced past K1's 
 # G = 3), omega = PLANTED_OMEGA on the FG branches only at PLANTED_SITES
 CONTRAST_CLADES, CONTRAST_LABELS = [250, 250], ["FG", "REF"]
 # phase 15: contrast-MEME's codons and permutations
-CMEME_CODONS, CMEME_PERMUTATIONS = 512, 5
+CMEME_CODONS, CMEME_PERMUTATIONS = 256, 5
 # phase 16: MEME --resample's codons and replicates; sites and branches of
 # the propagator check against scipy
 RESAMPLE_CODONS, MEME_RESAMPLE = 64, 5
 RESAMPLE_CHECK_SITES, RESAMPLE_CHECK_BRANCHES = 2, 3
 RESAMPLE_EXPM_BOUND = 1e-10
+# phase 17: PRIME's per-site objective card vs host (fp64 Taylor) at these
+# (alpha, beta, lambda_0, other lambdas) points, one with |lambda| = 10
+PRIME_POINTS = [(1.0, 0.5, 0.1, 0.1), (0.3, 2.0, -1.0, 0.5), (1.0, 1.0, -10.0, 0.1)]
+# phase 18: BUSTED's mixture site lnL card vs host (fp64 Taylor, relative),
+# fp32 Taylor vs fp64 spectral per pattern and on the whole lnL
+BUSTED_HOST_REL_BOUND, BUSTED_FP32_SITE_BOUND, BUSTED_FP32_TOTAL_BOUND = 1e-9, 0.03, 10.0
+# ... and the fp64 spectral site lnL card vs host (relative), finite and
+# below 0, at the fitted point and at a synonymous-rate class at time 1e16:
+# the two eigensolvers' round-off meets the cancelling eigenvector sums of
+# short branches (SITE_SPECTRAL_BOUNDS, ROADMAP 3.5), so the bound is the
+# size of those differences, far below a fault of the route (lnL +8.4e7)
+BUSTED_SPECTRAL_HOST_REL_BOUND = 1e-6
+# phase 19: BUSTED-E's codons (the JSON carries [tested branches, K+1,
+# sites] posteriors), the class posteriors' sum and the re-mixing bound
+ERROR_SINK_CODONS, POSTERIOR_SUM_BOUND, REMIX_REL_BOUND = 512, 1e-6, 1e-5
+# phase 20: BUSTED-PH's codons on the contrast alignment
+BUSTEDPH_CODONS = 512
+# --busted-check: BUSTED uncapped in fp32 and fp64 on three inputs, each
+# fit's lnL finite and below 0 and the unconstrained lnL no lower than the
+# constrained one less ALT_NULL_SLACK (the refit from the constrained MLE
+# starts omega_k 1e-12 off its bound):
+#   * phase 18's input (the planted alignment) cut to BUSTED_CHECK_CODONS
+#     codons (at 2048 it and the control took over 1100 s of command); in
+#     fp64 the unconstrained lnL also lies at or above every point of a scan
+#     that puts omega_3 at PLANTED_SCAN_OMEGAS with weights PLANTED_SCAN_SHARES
+#     times the planted codons' share, at the fitted mean omega;
+#   * bench.py's alignment cut to BENCH_CHECK_CODONS codons (random codons on
+#     a tree they were not drawn on: the fits reach the box's corners, where
+#     an fp64 fit at 512 codons returned lnL +8.4e7 before the zero modes
+#     were settled, ROADMAP 3.15; 256 codons keep the check's time);
+#   * an episodic positive control of BUSTED_POSITIVE_CODONS codons (omega
+#     EPISODIC_OMEGA on a fresh EPISODIC_SHARE of the branches in each block
+#     of EPISODIC_BLOCK codons): p <= 0.05 in both precisions
+BUSTED_CHECK_CODONS, BENCH_CHECK_CODONS, BUSTED_POSITIVE_CODONS = 1024, 256, 128
+ALT_NULL_SLACK = 1e-6
+PLANTED_SCAN_OMEGAS, PLANTED_SCAN_SHARES = (2.0, 5.0, 10.0, 20.0), (0.25, 0.5, 1.0, 2.0, 4.0)
+EPISODIC_OMEGA, EPISODIC_SHARE, EPISODIC_BLOCK = 20.0, 0.05, 64
 # --precision-check: FEL's per-site stage on phase 8's input, uncapped, in
 # fp32 and in fp64 at one global fit: the same p <= 0.1 set, and alpha and
 # beta within PRECISION_RATE_ATOL + PRECISION_RATE_RTOL * |fp64 value| at
@@ -2212,6 +2287,592 @@ def phase_meme_resample(torch, aln, tree_path: str, tmp: str) -> dict:
     return res
 
 
+def phase_prime(torch, fasta: str, tree_path: str, tmp: str) -> dict:
+    """PRIME at full width on phase 9's alignment through ``warmup prime``:
+    seconds per stage, ms per batched site evaluation, K1 launches, peak
+    memory; the per-site objective card vs host (fp64 Taylor) on
+    SITE_PARITY_N sites at PRIME_POINTS and fp32 vs fp64 on every pattern;
+    the JSON."""
+    import numpy as np
+
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.methods import common, prime
+
+    out_json = os.path.join(tmp, "sim.PRIME.json")
+    argv = ["warmup", "prime", "--alignment", fasta, "--tree", tree_path, "--output", out_json]
+    clock, res = _run_cli(torch, argv, [
+        (common, "load_codon_data", "load"),
+        (common, "fit_gtr", "gtr"),
+        (common, "fit_partitioned_mg94", "mg94"),
+        (prime, "site_log_likelihood", "objective"),
+        (prime, "grid_best_starts", "grid"),
+        (prime, "vmapped_nelder_mead", "nelder_mead"),
+        (cli, "write_json", "json"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["fits_s"] = {"full": clock.each["nelder_mead"][0], "nulls": clock.each["nelder_mead"][1:]}
+    res["site_eval_ms"] = _eval_stats(clock.eval_ms)
+    with open(out_json) as fh:
+        result = json.load(fh)
+    table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    check(table.shape == (N_CODONS, 18), f"PRIME table of shape {table.shape}")
+    check(bool(np.isfinite(table).all()), "non-finite entries in the PRIME table")
+    pvals = table[:, [5 + 3 * k for k in range(5)]]
+    check(bool(((pvals >= 0) & (pvals <= 1)).all()), "PRIME p-values outside [0, 1]")
+    res["table"] = {"min_p_per_property": pvals.min(axis=0).tolist()}
+
+    data, mgp, dists = clock.first["objective"][:3]
+    n = min(SITE_PARITY_N, data.codon_filter.n_patterns)
+    host_fit = _host_fit(mgp, data)
+    card64 = prime.site_log_likelihood(data, mgp, dists, torch.float64, False)
+    host64 = prime.site_log_likelihood(data, host_fit, dists.cpu(), torch.float64, False)
+    card32 = prime.site_log_likelihood(data, mgp, dists, torch.float32, False)
+    f64 = dict(dtype=torch.float64, device=DEVICE)
+
+    def point(rows, alpha, beta, lam0, lam):
+        p = {"alpha": torch.full((rows,), alpha, **f64), "beta": torch.full((rows,), beta, **f64)}
+        p.update({f"lambda_{k}": torch.full((rows,), lam0 if k == 0 else lam, **f64)
+                  for k in range(5)})
+        return p
+
+    ones = torch.ones(5, **f64)
+    res["site_fp64_card_vs_host"] = {}
+    with torch.no_grad():
+        for pt in PRIME_POINTS:
+            p = point(n, *pt)
+            card = card64(torch.arange(n, device=DEVICE), p, ones).cpu()
+            host = host64(torch.arange(n), {k: v.cpu() for k, v in p.items()}, ones.cpu())
+            res["site_fp64_card_vs_host"][str(pt)] = float((card - host).abs().max())
+        rows = data.codon_filter.n_patterns
+        idx = torch.arange(rows, device=DEVICE)
+        p = point(rows, *PRIME_POINTS[1])
+        res["site_fp32_vs_fp64"] = float((card32(idx, p, ones).double()
+                                          - card64(idx, p, ones)).abs().max())
+        p10 = point(rows, *PRIME_POINTS[2])
+        res["site_eval_fp32_ms_lambda10"] = _event_and_wall_ms(
+            torch, lambda: card32(idx, p10, ones), 3)
+    log(f"[prime] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; full fit {res['fits_s']['full']:.3f} s, nulls "
+        f"{[round(x, 3) for x in res['fits_s']['nulls']]} s")
+    log(f"[prime] K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
+        f"batched site evaluations {_rounded(res['site_eval_ms'])} ms; at |lambda| = 10 "
+        f"(fp32, every pattern) {_rounded(res['site_eval_fp32_ms_lambda10'])}")
+    log(f"[prime] per-site objective fp64 Taylor card vs host on {n} sites "
+        f"{ {k: f'{v:.3e}' for k, v in res['site_fp64_card_vs_host'].items()} } (bound "
+        f"{SITE_HOST_BOUND}); fp32 vs fp64 on {rows} patterns {res['site_fp32_vs_fp64']:.3e} "
+        f"(bound {SITE_FP32_BOUND}); min p per property {res['table']['min_p_per_property']}")
+    for pt, d in res["site_fp64_card_vs_host"].items():
+        check(d <= SITE_HOST_BOUND, f"PRIME site lnL card vs host at {pt}: {d}")
+    check(res["site_fp32_vs_fp64"] <= SITE_FP32_BOUND, "PRIME fp32 site lnL far from fp64")
+    check(res["level_products_launches"] > 0, "PRIME launched no level_products kernel")
+    return res
+
+
+def _rounded(d: dict) -> dict:
+    return {k: round(v, 3) if isinstance(v, float) else v for k, v in d.items()}
+
+
+def _bsrel_copy(torch, engine, data, device, dtype, patterns=None, basis=None):
+    """A BSRELEngine over the run engine's model, tree and (the first
+    ``patterns``) patterns on ``device`` in ``dtype``, on the Taylor route;
+    ``basis``: None, or "Double+Triple" for the multi-hit bases."""
+    from hyphy_tpu_torch.models.bsrel import BSRELEngine
+    from hyphy_tpu_torch.models.codon import MG94Base
+    from hyphy_tpu_torch.ops import pruning
+
+    model = engine.model
+    mg94 = MG94Base(model.gc, model.corner_freqs, model.frequencies.cpu().numpy(), device=device)
+    basis_fn = None
+    if basis:
+        def basis_fn(params):
+            q1s, q1n = mg94.basis_matrices(params)
+            q2s, q2n = mg94.multihit_basis_matrices(params, 2)
+            q3s, q3n = mg94.multihit_basis_matrices(params, 3)
+            return (q1s + params["delta"] * q2s + params["psi"] * q3s,
+                    q1n + params["delta"] * q2n + params["psi"] * q3n)
+    leaves = engine.leaf_partials.cpu().numpy()
+    weights = engine.pattern_weights.cpu().numpy()
+    if patterns is not None:
+        leaves, weights = leaves[:, :patterns], weights[:patterns]
+    saved = os.environ.get("HYPHY_TPU_PRECISION")
+    os.environ["HYPHY_TPU_PRECISION"] = str(dtype).split(".")[-1]
+    try:
+        out = BSRELEngine(mg94, pruning.build_pruning_data(data.tree, device), leaves, weights,
+                          engine.group_of_branch.cpu().numpy(), engine.srv_classes,
+                          basis_fn=basis_fn)
+    finally:
+        if saved is None:
+            del os.environ["HYPHY_TPU_PRECISION"]
+        else:
+            os.environ["HYPHY_TPU_PRECISION"] = saved
+    out.spectral = False
+    return out
+
+
+def phase_busted(torch, fasta: str, tree_path: str, tmp: str) -> dict:
+    """BUSTED at full width on phase 9's alignment through ``warmup busted``
+    (SRV 3 x 3, 2 starting points): seconds per stage, ms per value and
+    gradient, K1 launches per evaluation, peak memory; card vs host, fp32
+    vs fp64, the folded classes, the options' objectives; the JSON."""
+    import numpy as np
+
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.methods import busted, common
+    from hyphy_tpu_torch.models import bsrel
+    from hyphy_tpu_torch.ops import hmm, pruning
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    out_json = os.path.join(tmp, "sim.BUSTED.json")
+    argv = ["warmup", "busted", "--alignment", fasta, "--tree", tree_path, "--output", out_json]
+    clock, res = _run_cli(torch, argv, [
+        (common, "load_codon_data", "load"),
+        (common, "fit_gtr", "gtr"),
+        (common, "fit_partitioned_mg94", "mg94"),
+        (busted, "BSRELEngine", "engine"),
+        (busted, "fit_unconstrained", "unconstrained"),
+        (busted, "fit_constrained", "constrained"),
+        (busted, "maximize", "maximize"),
+        (cli, "write_json", "json"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["maximize_s"] = clock.each["maximize"]
+    with open(out_json) as fh:
+        result = json.load(fh)
+    check(all(k in result for k in ("test results", "Evidence Ratios", "Site Log Likelihood",
+                                    "fits")), f"BUSTED JSON keys {sorted(result)}")
+    tr = result["test results"]
+    er = np.asarray(result["Evidence Ratios"]["optimized null"][0])
+    res["test"] = {"LRT": tr["LRT"], "p": tr["p-value"]}
+    check(tr["LRT"] >= 0 and 0 <= tr["p-value"] <= 1, f"BUSTED test {tr}")
+    check(er.shape == (N_CODONS,) and bool(np.isfinite(er).all()), "BUSTED evidence ratios")
+
+    data = clock.last["load"][1]
+    engine = clock.last["engine"][1]
+    loglik, _, params = clock.last["constrained"][0][:3]
+    n_levels = len(engine.pdata.plans)
+
+    def value_and_grad():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        v = loglik(p)
+        v.backward()
+        return v
+
+    before = level_products.launches
+    with torch.no_grad():
+        loglik(params)
+    res["k1_launches_per_value"] = level_products.launches - before
+    res["levels"] = n_levels
+    res["value_grad_ms"] = _eval_stats(wall_ms(torch, value_and_grad, 3))
+    with torch.no_grad():
+        res["value_ms"] = _eval_stats(wall_ms(torch, lambda: loglik(params), 3))
+        res["profile_value"] = prof = profile_ms(
+            torch, lambda: loglik(params), os.path.join("chiprun_out", "profile_busted_value.txt"))
+    torch.cuda.reset_peak_memory_stats()
+    value_and_grad()
+    res["value_grad_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    def unpack_at(eng, p):
+        om = torch.stack([p[f"test_omega_{i}"] for i in (1, 2, 3)])
+        w = bsrel.stick_breaking_weights(torch.stack([p["test_w_1"], p["test_w_2"]]))
+        rates, wsrv = bsrel.srv_distribution(p, eng.srv_classes)
+        return om[None], w[None], rates, wsrv
+
+    n = min(SITE_PARITY_N, data.codon_filter.n_patterns)
+    card = _bsrel_copy(torch, engine, data, DEVICE, torch.float64, n)
+    host = _bsrel_copy(torch, engine, data, "cpu", torch.float64, n)
+    host_params = {k: v.detach().cpu() for k, v in params.items()}
+    point = dict(params, srv_lambda=torch.tensor(0.2, dtype=torch.float64, device=DEVICE),
+                 delta=torch.tensor(0.1, dtype=torch.float64, device=DEVICE),
+                 psi=torch.tensor(0.05, dtype=torch.float64, device=DEVICE))
+    host_point = {k: v.detach().cpu() for k, v in point.items()}
+
+    def rel(a, b):
+        return float(((a.cpu() - b) / b.abs()).abs().max())
+
+    with torch.no_grad():
+        res["site_fp64_card_vs_host_rel"] = rel(
+            card.site_log_likelihoods(params, *_args(unpack_at(card, params), params)),
+            host.site_log_likelihoods(host_params, *_args(unpack_at(host, host_params),
+                                                          host_params)))
+        # the options' objectives at one point: HMM forward lnL, branch-site
+        # SRV site lnLs, the Double+Triple bases
+        options = {}
+        om, w, rates, wsrv = unpack_at(card, point)
+        hom, hw, hrates, hwsrv = unpack_at(host, host_point)
+        dup = np.arange(n, dtype=np.int32)
+        c_sll = card.class_site_log_likelihoods(point, om, w, point["t"], rates)
+        h_sll = host.class_site_log_likelihoods(host_point, hom, hw, host_point["t"], hrates)
+        options["srv_hmm"] = rel(
+            hmm.forward_log_likelihood(c_sll, dup, hmm.uniform_switching_matrix(3, 0.2), wsrv)[None],
+            hmm.forward_log_likelihood(h_sll, dup, hmm.uniform_switching_matrix(3, 0.2), hwsrv)[None])
+        options["srv_branchsite"] = rel(
+            card.branchsite_srv_site_log_likelihoods(point, om, w, point["t"], rates, wsrv),
+            host.branchsite_srv_site_log_likelihoods(host_point, hom, hw, host_point["t"], hrates,
+                                                     hwsrv))
+        card_mh = _bsrel_copy(torch, engine, data, DEVICE, torch.float64, n, "Double+Triple")
+        host_mh = _bsrel_copy(torch, engine, data, "cpu", torch.float64, n, "Double+Triple")
+        options["multiple_hits"] = rel(
+            card_mh.site_log_likelihoods(point, om, w, point["t"], rates, wsrv),
+            host_mh.site_log_likelihoods(host_point, hom, hw, host_point["t"], hrates, hwsrv))
+        res["options_card_vs_host_rel"] = options
+        # the fp64 spectral route card vs host: at the fitted point, and at a
+        # synonymous-rate class of weight 1e-12 at time 1e16 (the regime of
+        # the zero modes' round-off, ROADMAP 3.15)
+        card.spectral = host.spectral = True
+        spectral = {}
+        for name, (c_rates, c_w) in (("fitted", unpack_at(card, params)[2:]),
+                                     ("time_1e16", ([1e16, 1.0, 1.0], [1e-12, 0.5, 0.5 - 1e-12]))):
+            c_rates, c_w = (torch.as_tensor(x, dtype=torch.float64) for x in (c_rates, c_w))
+            on_card = card.site_log_likelihoods(params, *unpack_at(card, params)[:2], params["t"],
+                                                c_rates.to(DEVICE), c_w.to(DEVICE))
+            on_host = host.site_log_likelihoods(host_params, *unpack_at(host, host_params)[:2],
+                                                host_params["t"], c_rates.cpu(), c_w.cpu())
+            spectral[name] = {"rel": rel(on_card, on_host),
+                              "finite_below_0": bool(torch.isfinite(on_card).all()
+                                                     and (on_card < 0).all())}
+        res["site_fp64_spectral_card_vs_host"] = spectral
+        del card, host, card_mh, host_mh
+
+        # fp32 Taylor (the run's engine) against fp64 spectral on every pattern
+        full64 = _bsrel_copy(torch, engine, data, DEVICE, torch.float64)
+        full64.spectral = True
+        sll32 = engine.site_log_likelihoods(params, *_args(unpack_at(engine, params), params))
+        sll64 = full64.site_log_likelihoods(params, *_args(unpack_at(full64, params), params))
+        res["site_fp32_vs_fp64"] = float((sll32 - sll64).abs().max())
+        res["lnl_fp32_vs_fp64"] = float(abs(torch.dot(sll32 - sll64, engine.pattern_weights)))
+        del full64
+        # the folded classes against each class pruned alone
+        om, w, rates, _ = unpack_at(engine, params)
+        times = rates[:, None] * params["t"][None, :]
+        p_mix = engine.mixture_propagators(params, om, w, times)
+        folded = engine.class_site_log_likelihoods(params, om, w, params["t"], rates)
+        alone = torch.cat([pruning.site_log_likelihoods(p_mix[c:c + 1], engine.leaf_partials,
+                                                        engine.freqs, engine.pdata, floor=True)
+                           for c in range(p_mix.shape[0])])
+        res["folded_equal_to_each_class_alone"] = bool(torch.equal(folded, alone))
+    log(f"[busted] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; maximize_jax calls {[round(x, 3) for x in res['maximize_s']]} s")
+    log(f"[busted] K1 launches {res['level_products_launches']} ({res['k1_launches_per_value']} "
+        f"per mixture value over {res['levels']} levels, 3 SRV classes folded); peak "
+        f"{res['peak_gb']:.2f} GB (one value+gradient {res['value_grad_peak_gb']:.2f} GB); value "
+        f"{_rounded(res['value_ms'])} ms, value+gradient {_rounded(res['value_grad_ms'])} ms; one "
+        f"value profiled: wall {prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in "
+        f"{prof['launches']} launches ({len(prof['k1_launch_ms'])} K1, "
+        f"{sum(prof['k1_launch_ms']):.3f} ms), idle share {prof['idle_share']:.3f}; top "
+        f"{prof['top'][:3]}")
+    log(f"[busted] test {res['test']}; site lnL fp64 Taylor card vs host on {n} patterns, "
+        f"relative {res['site_fp64_card_vs_host_rel']:.3e} (bound {BUSTED_HOST_REL_BOUND}); "
+        f"fp64 spectral card vs host {res['site_fp64_spectral_card_vs_host']} (bound "
+        f"{BUSTED_SPECTRAL_HOST_REL_BOUND}); "
+        f"options card vs host {res['options_card_vs_host_rel']}; fp32 Taylor vs fp64 spectral "
+        f"per pattern {res['site_fp32_vs_fp64']:.3e} (bound {BUSTED_FP32_SITE_BOUND}), lnL "
+        f"{res['lnl_fp32_vs_fp64']:.3e} (bound {BUSTED_FP32_TOTAL_BOUND}); folded classes "
+        f"equal to each alone {res['folded_equal_to_each_class_alone']}")
+    check(res["k1_launches_per_value"] == n_levels,
+          f"{res['k1_launches_per_value']} K1 launches per mixture value over {n_levels} levels")
+    check(res["site_fp64_card_vs_host_rel"] <= BUSTED_HOST_REL_BOUND, "BUSTED site lnL card vs host")
+    for name, d in res["site_fp64_spectral_card_vs_host"].items():
+        check(d["finite_below_0"] and d["rel"] <= BUSTED_SPECTRAL_HOST_REL_BOUND,
+              f"BUSTED fp64 spectral site lnL card vs host at the {name} point: {d}")
+    for name, d in options.items():
+        check(d <= BUSTED_HOST_REL_BOUND, f"BUSTED {name} objective card vs host: {d}")
+    check(res["site_fp32_vs_fp64"] <= BUSTED_FP32_SITE_BOUND, "BUSTED fp32 site lnL far from fp64")
+    check(res["lnl_fp32_vs_fp64"] <= BUSTED_FP32_TOTAL_BOUND, "BUSTED fp32 lnL far from fp64")
+    check(res["folded_equal_to_each_class_alone"], "BUSTED folded SRV classes differ from alone")
+    check(res["level_products_launches"] > 0, "BUSTED launched no level_products kernel")
+    return res
+
+
+def _args(unpacked, params):
+    """(omegas, weights, t, rates, srv weights) for the engine's calls."""
+    om, w, rates, wsrv = unpacked
+    return om, w, params["t"], rates, wsrv
+
+
+def phase_busted_e(torch, aln, tree_path: str, tmp: str) -> dict:
+    """``warmup busted --error-sink`` on phase 9's alignment cut to
+    ERROR_SINK_CODONS codons, then ``error-filter`` on its JSON: seconds,
+    K1 launches, peak memory, the branch-pinned site lnLs' seconds; the
+    class posteriors, the re-mixing identity, the masked sequences."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import busted, error_filter
+    from hyphy_tpu_torch.models.bsrel import BSRELEngine
+
+    fasta = _cut_fasta(aln, os.path.join(tmp, "busted_e.fasta"), ERROR_SINK_CODONS)
+    out_json = os.path.join(tmp, "busted_e.BUSTED.json")
+    argv = ["warmup", "busted", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--error-sink"]
+    clock, res = _run_cli(torch, argv, [
+        (busted, "fit_unconstrained", "unconstrained"),
+        (busted, "fit_constrained", "constrained"),
+        (BSRELEngine, "branch_class_site_logliks", "branch_class"),
+        (busted.ancestral, "joint_reconstruct", "joint_reconstruct"),
+        (busted, "substitution_map", "substitution_map"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    with open(out_json) as fh:
+        result = json.load(fh)
+    branches = result["branch attributes"]["0"]
+    sums = np.stack([np.asarray(b["Posterior prob omega class by site"]).sum(axis=0)
+                     for b in branches.values()])
+    res["posterior_sum_max_dev"] = float(np.abs(sums - 1.0).max())
+    res["tested_branches"] = len(branches)
+
+    (engine, params, omegas, weights, t_b, rates, wsrv, _), sll_bk = clock.last["branch_class"]
+    with torch.no_grad():
+        remixed = torch.logsumexp(
+            sll_bk + torch.log(weights[0].double())[None, :, None], dim=1)   # [n_sel, patterns]
+        sll = engine.site_log_likelihoods(params, omegas, weights, t_b, rates, wsrv)
+        res["remix_rel"] = float(((remixed - sll[None]) / sll.abs()[None]).abs().max())
+
+    masked = os.path.join(tmp, "busted_e.masked.fasta")
+    t0 = time.perf_counter()
+    rc = __import__("hyphy_tpu_torch.cli", fromlist=["main"]).main(
+        ["error-filter", "--json", out_json, "--output", masked])
+    res["error_filter_s"] = time.perf_counter() - t0
+    check(rc == 0, f"error-filter returned {rc}")
+    with open(masked) as fh:
+        lines = [ln.strip() for ln in fh if ln.strip()]
+    seqs = [ln for ln, prev in zip(lines[1:], lines) if prev.startswith(">")]
+    res["masked_sequences"] = len(seqs)
+    report = error_filter.run(out_json)
+    res["masked_cells"] = report.total_masked
+    log(f"[busted-e] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB")
+    log(f"[busted-e] {res['tested_branches']} tested branches: class posteriors sum to 1 within "
+        f"{res['posterior_sum_max_dev']:.3e} (bound {POSTERIOR_SUM_BOUND}); pinned site lnLs "
+        f"re-mixed vs the site lnL, relative {res['remix_rel']:.3e} (bound {REMIX_REL_BOUND}); "
+        f"error-filter {res['error_filter_s']:.2f} s, {res['masked_cells']} cells masked, "
+        f"{res['masked_sequences']} sequences")
+    check(res["posterior_sum_max_dev"] <= POSTERIOR_SUM_BOUND, "class posteriors do not sum to 1")
+    check(res["remix_rel"] <= REMIX_REL_BOUND, "re-mixed pinned site lnLs far from the site lnL")
+    check(res["masked_sequences"] == N_TAXA and all(len(x) == 3 * ERROR_SINK_CODONS for x in seqs),
+          "masked sequences lost their length")
+    check(res["level_products_launches"] > 0, "BUSTED-E launched no level_products kernel")
+    return res
+
+
+def phase_busted_ph(torch, aln, tree_path: str, tmp: str) -> dict:
+    """``warmup busted-ph --branches FG`` on phase 14's alignment cut to
+    BUSTEDPH_CODONS codons, then ``clade-support`` on its JSON: seconds per
+    test, K1 launches, peak memory; the three p-values, the perplexity."""
+    from hyphy_tpu_torch.methods import busted, clade_support
+
+    fasta = _cut_fasta(aln, os.path.join(tmp, "bustedph.fasta"), BUSTEDPH_CODONS)
+    out_json = os.path.join(tmp, "bustedph.BUSTED-PH.json")
+    argv = ["warmup", "busted-ph", "--alignment", fasta, "--tree", tree_path, "--output",
+            out_json, "--branches", CONTRAST_LABELS[0]]
+    clock, res = _run_cli(torch, argv, [
+        (busted, "fit_unconstrained", "unconstrained"),
+        (busted, "fit_constrained", "constrained"),
+        (busted, "maximize", "maximize"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    null_s = clock.each["constrained"]
+    res["tests_s"] = {"alternative": clock.seconds["unconstrained"] + null_s[0],
+                      "background": null_s[1] if len(null_s) > 1 else 0.0,
+                      "equality": clock.each["maximize"][-1]}
+    with open(out_json) as fh:
+        result = json.load(fh)
+    ps = result["BUSTED-PH"]["uncorrected P-values for each test"]
+    res["p"] = ps
+    t0 = time.perf_counter()
+    ecb = clade_support.run(out_json, output_json=os.path.join(tmp, "bustedph.ECB.json"))
+    res["clade_support_s"] = time.perf_counter() - t0
+    res["perplexity"] = ecb.perplexity
+    log(f"[busted-ph] {res['command']}: {res['total_s']:.2f} s; tests, s: "
+        f"{_rounded(res['tests_s'])}; K1 launches {res['level_products_launches']}; peak "
+        f"{res['peak_gb']:.2f} GB; p {ps}; clade-support {res['clade_support_s']:.2f} s, "
+        f"perplexity {ecb.perplexity}")
+    check(all(0 <= v <= 1 for v in ps.values()), f"BUSTED-PH p-values {ps}")
+    check(all(v >= 1 - 1e-12 for v in ecb.perplexity.values()), f"perplexity {ecb.perplexity}")
+    check(res["level_products_launches"] > 0, "BUSTED-PH launched no level_products kernel")
+    return res
+
+
+def _episodic_alignment(tmp: str, n_codons: int):
+    """BUSTED's positive control: codons drawn along ``random_tree_newick
+    (N_TAXA, SEED)`` with ``utils/simulate.py::simulate_states`` under
+    ``synth._mg94_generator``'s omega-0.3 generator, except that in each
+    block of EPISODIC_BLOCK codons a fresh random EPISODIC_SHARE of the
+    branches runs omega EPISODIC_OMEGA at the same synonymous rate: the
+    branch-site (episodic) selection BUSTED tests for.  Returns (FASTA,
+    newick)."""
+    import numpy as np
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch.data.genetic_code import GeneticCode
+    from hyphy_tpu_torch.tree.topology import Tree
+    from hyphy_tpu_torch.utils import synth
+    from hyphy_tpu_torch.utils.simulate import simulate_states, states_to_alignment
+
+    t0 = time.perf_counter()
+    gc = GeneticCode("Universal")
+    newick = synth.random_tree_newick(N_TAXA, seed=SEED)
+    tree = Tree.from_newick(newick)
+    lengths = np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6)
+    slow = synth._mg94_generator(gc, 2.5, 0.3)
+    amino = np.array(list(gc.translation))[np.asarray(gc.sense_codons)]
+    fast = np.where(amino[:, None] != amino[None, :], slow * (EPISODIC_OMEGA / 0.3), slow)
+    np.fill_diagonal(fast, 0.0)
+    fast -= np.diag(fast.sum(axis=1))
+    p_slow = np.stack([sla.expm(slow * t) for t in lengths])
+    p_fast = np.stack([sla.expm(fast * t) for t in lengths])
+    pi = np.full(gc.n_states, 1.0 / gc.n_states)
+    rng = np.random.default_rng(SEED)
+    states = np.zeros((tree.n_nodes, n_codons), dtype=np.int32)
+    for lo in range(0, n_codons, EPISODIC_BLOCK):
+        hi = min(lo + EPISODIC_BLOCK, n_codons)
+        chosen = rng.random(len(lengths)) < EPISODIC_SHARE
+        p = np.where(chosen[:, None, None], p_fast, p_slow)
+        states[:, lo:hi] = simulate_states(tree, p, pi, hi - lo, rng)
+    names, seqs = states_to_alignment(states, tree, "codon", gc)
+    fasta = os.path.join(tmp, "episodic.fasta")
+    _write_fasta(fasta, names, seqs)
+    log(f"[busted-check] episodic alignment of {N_TAXA} taxa x {n_codons} codons, omega "
+        f"{EPISODIC_OMEGA} on {EPISODIC_SHARE:.0%} of the branches per block of "
+        f"{EPISODIC_BLOCK} codons: {time.perf_counter() - t0:.2f} s on the host")
+    return fasta, newick
+
+
+def _planted_scan(torch, r, share: float) -> dict:
+    """The fitted unconstrained lnL against points near the planted truth:
+    omega_3 at each of PLANTED_SCAN_OMEGAS with weight ``share`` times each
+    of PLANTED_SCAN_SHARES, omega_1 = omega_2 set so that the per-branch
+    mean omega stays the fitted one, every other parameter the fit's."""
+    ll, unpack = r.context["loglik"], r.context["unpack"]
+    omegas, weights, _, _ = unpack(r.alt_params)
+    mean = float((omegas[0] * weights[0]).sum())
+    points = []
+    with torch.no_grad():
+        for o3 in PLANTED_SCAN_OMEGAS:
+            for f in PLANTED_SCAN_SHARES:
+                w3 = f * share
+                low = (mean - w3 * o3) / (1.0 - w3)
+                if low < 0:
+                    continue
+                p = dict(r.alt_params)
+                for name, v in (("test_omega_1", low), ("test_omega_2", low),
+                                ("test_omega_3", o3), ("test_w_1", 0.5),
+                                ("test_w_2", 1.0 - 2.0 * w3)):
+                    p[name] = torch.tensor(v, dtype=torch.float64, device=DEVICE)
+                points.append({"omega_3": o3, "w_3": w3,
+                               "lnl_minus_fit": float(ll(p)) - r.unconstrained_lnl})
+    best = max(points, key=lambda q: q["lnl_minus_fit"])
+    return {"fitted_mean_omega": mean, "points": points, "best": best}
+
+
+def _busted_uncapped(torch, fasta: str, newick: str, label: str, share=None) -> dict:
+    """BUSTED on one input with every fit run to convergence, in fp32 and
+    in fp64: each precision's seconds, lnLs, LRT, p and per-fit counters
+    (iterations, restarts, evaluations, seconds, why it stopped); every lnL
+    finite and below 0, the unconstrained no lower than the constrained;
+    the two precisions' unconstrained lnLs within FP32_BOUND and their
+    calls at 0.05 equal.  ``share``: the planted codons' share, for the
+    fp64 scan of :func:`_planted_scan`."""
+    from hyphy_tpu_torch.methods import busted
+
+    res = {}
+    original = busted.maximize
+    for name in ("float32", "float64"):
+        fits = []
+
+        def recorded(*args, **kwargs):
+            fits.append({})
+            return original(*args, stats=fits[-1], **kwargs)
+
+        os.environ["HYPHY_TPU_PRECISION"] = name
+        os.environ["HYPHY_TPU_VERBOSITY"] = "1"   # one stderr line per optimizer stop
+        busted.maximize = recorded
+        try:
+            t0 = time.perf_counter()
+            r = busted.run(fasta, tree=newick, starting_points=2, device=DEVICE)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            scan = _planted_scan(torch, r, share) if share and name == "float64" else None
+        finally:
+            busted.maximize = original
+            del os.environ["HYPHY_TPU_PRECISION"], os.environ["HYPHY_TPU_VERBOSITY"]
+        res[name] = {"seconds": seconds, "mg94_lnl": r.mg94.loglik,
+                     "unconstrained_lnl": r.unconstrained_lnl, "null_lnl": r.null_lnl,
+                     "lrt": r.lrt, "p": r.p_value, "fits": fits}
+        log(f"[busted-check] {label} {name}: {seconds:.2f} s; MG94 lnL {r.mg94.loglik:.6f}, "
+            f"unconstrained {r.unconstrained_lnl:.6f}, null {r.null_lnl:.6f}, LRT {r.lrt:.4f}, "
+            f"p {r.p_value:.3e}; fits (iterations, restarts, evaluations, s, stop): "
+            f"{[(f['iterations'], f['restarts'], f['evaluations'], round(f['seconds'], 2), f['stop']) for f in fits]}")
+        if scan is not None:
+            res[name]["scan"] = scan
+            log(f"[busted-check] {label} {name}: fitted mean omega {scan['fitted_mean_omega']:.6f}; "
+                f"best of {len(scan['points'])} points near the planted truth {scan['best']}")
+            check(scan["best"]["lnl_minus_fit"] <= 0,
+                  f"BUSTED {label} {name}: a point near the planted truth lies above the fit: "
+                  f"{scan['best']}")
+        torch.cuda.empty_cache()
+        lnls = (r.unconstrained_lnl, r.null_lnl)
+        check(all(math.isfinite(v) and v < 0 for v in lnls),
+              f"BUSTED {label} {name}: lnL unconstrained {lnls[0]}, constrained {lnls[1]}")
+        check(r.unconstrained_lnl >= r.null_lnl - ALT_NULL_SLACK,
+              f"BUSTED {label} {name}: the unconstrained fit ends below the constrained one")
+        check(r.lrt >= 0 and 0 <= r.p_value <= 1, f"BUSTED {label} {name}: LRT {r.lrt}, p {r.p_value}")
+    res["fp32_vs_fp64_lnl"] = abs(res["float32"]["unconstrained_lnl"]
+                                  - res["float64"]["unconstrained_lnl"])
+    check(res["fp32_vs_fp64_lnl"] <= FP32_BOUND,
+          f"BUSTED {label}: fp32 and fp64 unconstrained lnL {res['fp32_vs_fp64_lnl']} apart")
+    check((res["float32"]["p"] <= 0.05) == (res["float64"]["p"] <= 0.05),
+          f"BUSTED {label}: fp32 and fp64 call differently at 0.05")
+    return res
+
+
+def phase_busted_check(torch, tmp: str) -> dict:
+    """BUSTED with every fit run to convergence, in fp32 and in fp64, on the
+    planted alignment (BUSTED_CHECK_CODONS codons), bench.py's alignment
+    (BENCH_CHECK_CODONS codons) and the episodic positive control
+    (:func:`_episodic_alignment`, BUSTED_POSITIVE_CODONS codons): there p <=
+    0.05 in both precisions (see :func:`_busted_uncapped` for the rest).
+    The partial record goes to chiprun_out after each input."""
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    aln, fasta, tree_path = _planted_alignment(tmp)
+    if BUSTED_CHECK_CODONS < N_CODONS:
+        fasta = _cut_fasta(aln, os.path.join(tmp, "busted_check.fasta"), BUSTED_CHECK_CODONS)
+    with open(tree_path) as fh:
+        newick = fh.read().strip()
+    share = sum(s < BUSTED_CHECK_CODONS for s in PLANTED_SITES) / BUSTED_CHECK_CODONS
+    bench_aln, bench_newick, _, _ = _write_inputs(tmp)
+    bench_fasta = _cut_fasta(bench_aln, os.path.join(tmp, "bench_check.fasta"),
+                             BENCH_CHECK_CODONS)
+    episodic_fasta, episodic_newick = _episodic_alignment(tmp, BUSTED_POSITIVE_CODONS)
+    res = {"codons": {"planted": BUSTED_CHECK_CODONS, "bench": BENCH_CHECK_CODONS,
+                      "episodic": BUSTED_POSITIVE_CODONS}}
+    level_products.launches = 0
+    failed = []
+    for label, path, tree, planted_share in (("planted", fasta, newick, share),
+                                             ("bench", bench_fasta, bench_newick, None),
+                                             ("episodic", episodic_fasta, episodic_newick, None)):
+        try:     # every input runs; a failed one fails the phase after the last
+            res[label] = _busted_uncapped(torch, path, tree, label, planted_share)
+            if label == "episodic":
+                for name in ("float32", "float64"):
+                    check(res[label][name]["p"] <= 0.05,
+                          f"BUSTED {name} p = {res[label][name]['p']} on the episodic alignment")
+        except RuntimeError as exc:
+            failed.append(f"{label}: {exc}")
+            log(f"[busted-check] {label} failed: {exc}")
+        with open(os.path.join("chiprun_out", "busted_check_partial.json"), "w") as fh:
+            json.dump(dict(res, failed=failed), fh, indent=1)
+    res["level_products_launches"] = level_products.launches
+    check(not failed, f"the BUSTED check failed on {failed}")
+    check(res["level_products_launches"] > 0, "the BUSTED check launched no kernel")
+    return res
+
+
 def phase_precision(torch, tmp: str) -> dict:
     """FEL's fp32 and fp64 site calls on phase 8's input (1000 taxa x
     CI_CODONS codons), no CI, no bootstrap: the global fits capped, then
@@ -2298,10 +2959,14 @@ def main(argv) -> int:
     record["kernels"] = phase_kernels(torch)
     full_fit = "--full-fit" in argv
     precision_check = "--precision-check" in argv
+    busted_check = "--busted-check" in argv
     with tempfile.TemporaryDirectory() as tmp:
         if precision_check:
             record["precision"] = phase_precision(torch, tmp)
             main_phases = ("precision",)
+        elif busted_check:
+            record["busted_check"] = phase_busted_check(torch, tmp)
+            main_phases = ("busted_check",)
         else:
             main_phases = _default_phases(torch, record, tmp, full_fit)
 
@@ -2309,7 +2974,7 @@ def main(argv) -> int:
                 if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")
     per_eval = next(r for r in record["kernels"]["evaluation"]
                     if r["states"] == 61 and r["dtype"] == "float32")
-    if not precision_check:
+    if not (precision_check or busted_check):
         # K1 inside a real fp32 evaluation (phase 5's profile) against phase
         # 3's per-level times on fresh random inputs, level by level
         in_eval = record["parity"]["float32"]["profile_value"]["k1_launch_ms"]
@@ -2331,7 +2996,7 @@ def main(argv) -> int:
         "eval_bound_ms": per_eval["bound_ms"],
         "launches_by_phase": by_phase,
     } for name in SOURCES]
-    if not precision_check:
+    if not (precision_check or busted_check):
         kernels[0]["eval_profiled_ms"] = sum(in_eval)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1)
@@ -2344,7 +3009,7 @@ def main(argv) -> int:
 
 
 def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
-    """Phases 4-16 into ``record``; returns the names of those that drive a
+    """Phases 4-20 into ``record``; returns the names of those that drive a
     method through its entry point (each reads K1's launch count around
     its run)."""
     def timed(name, fn, *args):
@@ -2381,8 +3046,13 @@ def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
     timed("contrast_fel", phase_contrast_fel, torch, con_fasta, con_tree, tmp)
     timed("contrast_meme", phase_contrast_meme, torch, con_aln, con_tree, tmp)
     timed("meme_resample", phase_meme_resample, torch, sim_aln, sim_tree, tmp)
+    timed("prime", phase_prime, torch, sim_fasta, sim_tree, tmp)
+    timed("busted", phase_busted, torch, sim_fasta, sim_tree, tmp)
+    timed("busted_e", phase_busted_e, torch, sim_aln, sim_tree, tmp)
+    timed("busted_ph", phase_busted_ph, torch, con_aln, con_tree, tmp)
     return ("main_path", "partitions", "options", "slac", "simulate", "meme", "fubar",
-            "bstill", "contrast_fel", "contrast_meme", "meme_resample")
+            "bstill", "contrast_fel", "contrast_meme", "meme_resample", "prime", "busted",
+            "busted_e", "busted_ph")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Command-line interface: ``python -m hyphy_tpu_torch <method> --alignment ...``.
 
 Counterpart of ``hyphy_tpu/cli.py`` for the ported methods (FEL, SLAC,
-MEME, FUBAR, B-STILL, contrast-FEL, contrast-MEME and ``simulate``), with
-the JAX parser's flags; it writes ``<alignment>.<METHOD>.json`` like the
+MEME, FUBAR, B-STILL, contrast-FEL, contrast-MEME, PRIME, BUSTED,
+BUSTED-PH, ``simulate``, and the post-processors ``error-filter`` and
+``clade-support``), with the JAX parser's flags; it writes ``<alignment>.<METHOD>.json`` like the
 reference analyses do.  It runs on ``settings.device`` — the card,
 raising without one; there is no device flag, as the JAX CLI has none.
 """
@@ -37,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
              "--alignment ...",
     )
     pw.add_argument("target", help="method to warm up (fel, slac, meme, fubar, b-still, "
-                                   "contrast-fel, contrast-meme, simulate)")
+                                   "contrast-fel, contrast-meme, simulate, prime, busted, "
+                                   "busted-ph)")
     pw.add_argument("rest", nargs=argparse.REMAINDER,
                     help="arguments passed through to the method")
 
@@ -136,6 +138,52 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sim-omega", dest="sim_omega", type=float, default=None,
                    help="override the fitted omega for the generating model")
     p.add_argument("--seed", type=int, default=0)
+
+    def busted_args(p, branches):
+        common_args(p)
+        p.add_argument("--branches", default=branches)
+        p.add_argument("--srv", default="Yes")
+        p.add_argument("--rates", type=int, default=3)
+        p.add_argument("--syn-rates", dest="syn_rates", type=int, default=3)
+        p.add_argument("--starting-points", dest="starting_points", type=int, default=1)
+        p.add_argument("--multiple-hits", dest="multiple_hits", default="None",
+                       choices=["None", "Double", "Double+Triple"])
+
+    p = sub.add_parser("busted", help="Branch-Site Unrestricted Statistical Test")
+    busted_args(p, "All")
+    p.add_argument("--srv-hmm", dest="srv_hmm", action="store_true",
+                   help="synonymous rate classes follow an HMM across sites")
+    p.add_argument("--save-fit", dest="save_fit", default=None,
+                   help="cache the unconstrained-model fit at this path and reuse it on reruns")
+    p.add_argument("--error-sink", dest="error_sink", action="store_true",
+                   help="add the BUSTED-E misalignment-absorbing class")
+    p.add_argument("--srv-branchsite", dest="srv_branchsite", action="store_true",
+                   help="branch-site synonymous rate variation")
+
+    p = sub.add_parser("busted-ph", help="BUSTED phenotype/trait association test")
+    busted_args(p, "Foreground")
+    p.add_argument("--error-sink", dest="error_sink", action="store_true")
+
+    p = sub.add_parser("error-filter", help="mask alignment error flagged by a BUSTED-E run")
+    p.add_argument("--json", required=True, help="BUSTED-E result JSON (busted --error-sink)")
+    p.add_argument("--output", required=True, help="masked FASTA path")
+    p.add_argument("--output-json", dest="output_json", default=None,
+                   help="machine-readable filter report path")
+    p.add_argument("--threshold", type=float, default=100.0,
+                   help="EBF error threshold for masking sites")
+    p.add_argument("--ratio", type=float, default=20.0, help="EBF for error vs selection")
+    p.add_argument("--site-threshold", dest="site_threshold", type=float, default=0.4,
+                   help="mask the entire site if more than this fraction of sequences is flagged")
+
+    p = sub.add_parser("clade-support", help="Effective Clade Breadth from a BUSTED-PH result")
+    p.add_argument("--json", required=True, help="BUSTED-PH result JSON")
+    p.add_argument("--output", default=None, help="output JSON path")
+
+    p = sub.add_parser("prime",
+                       help="PRoperty Informed Model of Evolution (per-site property LRTs)")
+    common_args(p)
+    p.add_argument("--branches", default="All")
+    p.add_argument("--pvalue", type=float, default=0.1)
     return parser
 
 
@@ -167,6 +215,24 @@ def main(argv=None) -> int:
         print(f"warmup complete in {time.time() - t0:.1f}s: '{args.target}' ran "
               f"with capped optimizers on these inputs")
         return rc
+
+    if args.method == "error-filter":
+        from hyphy_tpu_torch.methods import error_filter
+
+        out_json = args.output_json or (args.json + ".filter.json")
+        result = error_filter.run(args.json, output=args.output, output_json=out_json,
+                                  threshold=args.threshold, ratio=args.ratio,
+                                  site_threshold=args.site_threshold)
+        print(f"Masked {result.total_masked} site x sequence cells; "
+              f"filtered MSA written to {args.output}")
+        return 0
+    if args.method == "clade-support":
+        from hyphy_tpu_torch.methods import clade_support
+
+        out = args.output or (args.json + ".ECB.json")
+        result = clade_support.run(args.json, output_json=out)
+        print(f"ECB written to {out}: perplexity {result.perplexity}")
+        return 0
 
     tree = _read_tree_arg(args.tree)
     t0 = time.time()
@@ -212,6 +278,24 @@ def main(argv=None) -> int:
                                        permutations=args.permutations, **options)
         else:
             result = contrast_fel.run(args.alignment, args.code, tree, **options)
+    elif args.method in ("busted", "busted-ph"):
+        from hyphy_tpu_torch.methods import busted, bustedph
+
+        # the JAX CLI forces at least 2 starting points (hyphy_tpu/cli.py:331)
+        options = dict(srv=_bool(args.srv), rate_classes=args.rates,
+                       srv_classes=args.syn_rates,
+                       starting_points=max(args.starting_points, 2),
+                       multiple_hits=args.multiple_hits, error_sink=args.error_sink)
+        if args.method == "busted":
+            result = busted.run(args.alignment, args.code, tree, args.branches,
+                                save_fit=args.save_fit, srv_hmm=args.srv_hmm,
+                                srv_branchsite=args.srv_branchsite, **options)
+        else:
+            result = bustedph.run(args.alignment, args.code, tree, args.branches, **options)
+    elif args.method == "prime":
+        from hyphy_tpu_torch.methods import prime
+
+        result = prime.run(args.alignment, args.code, tree, args.branches, pvalue=args.pvalue)
     else:
         from hyphy_tpu_torch.methods import simulate
 

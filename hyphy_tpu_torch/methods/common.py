@@ -46,6 +46,20 @@ def chi2_sf(x: float, df: float) -> float:
     return float(_chi2.sf(max(x, 0.0), df))
 
 
+def rate_distribution(dist):
+    """[(omega, proportion)] from either rate-distribution JSON schema:
+    the reference's class-index-keyed dicts
+    (``{"0": {"omega": .., "proportion": ..}}``, selection.io.report_dnds)
+    or the list of pairs the JAX package once emitted — the
+    post-processors (error-filter, clade-support) accept both."""
+    if isinstance(dist, dict):
+        return [
+            (float(dist[k]["omega"]), float(dist[k]["proportion"]))
+            for k in sorted(dist, key=int)
+        ]
+    return [(float(r[0]), float(r[1])) for r in dist]
+
+
 @dataclasses.dataclass
 class LoadedData:
     """load_file equivalent (shared-load-file.bf:153), plus the device the

@@ -98,3 +98,12 @@ def flatten(params: Params):
 
 def count_parameters(specs: Specs) -> int:
     return sum(int(np.prod(s.shape)) if s.shape else 1 for s in specs.values())
+
+
+def stick_breaking_weights(raw: torch.Tensor) -> torch.Tensor:
+    """Mixture weights from K-1 stick-breaking fractions in (0,1)
+    (reference: ``parameters.helper.stick_breaking``, BS_REL.bf:313-351)."""
+    raw = torch.atleast_1d(raw)
+    one = torch.ones((1,), dtype=raw.dtype, device=raw.device)
+    remaining = torch.cat([one, torch.cumprod(1.0 - raw, dim=0)])
+    return torch.cat([raw, one]) * remaining

@@ -22,6 +22,11 @@ chunks (:func:`pruning._chunked_product`), where the reference's product of
 ~1000 children underflows; every scale is uniform over the parent's states,
 so no argmax moves, and nodes of at most four children keep the
 reference's arithmetic exactly.
+
+:func:`branch_flux_vectors` (BUSTED's per-branch class profiles) runs an
+inside and an outside pass on the same level plans, with the same repair:
+the reference multiplies all of a node's children (inside) and all of a
+child's siblings (outside) before it renormalises.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from hyphy_tpu_torch.ops.pruning import _CHUNK, PruningData, _chunked_product
+from hyphy_tpu_torch.ops.pruning import _CHUNK, PruningData, _chunked_product, _sibling_product
 
 # bytes of one piece of a level's [children, patterns, S, S] max-product
 _CHUNK_BYTES = 1 << 29
@@ -201,3 +206,163 @@ def sample_ancestors(
                 state[c] = draw(p_all[c][state[n]] * clv[c])
         out[s] = state[data.n_leaves:]
     return out
+
+
+def _renormalised(x: torch.Tensor):
+    """``x`` divided by its max over states (``mx > 0 ? mx : 1``), and the
+    fp64 log of that max."""
+    mx = torch.amax(x, dim=-1, keepdim=True)
+    mx = torch.where(mx > 0, mx, torch.ones((), dtype=x.dtype, device=x.device))
+    return x / mx, torch.log(mx[..., 0]).to(torch.float64)
+
+
+def _sequential_sum(terms: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` one add at a time, in order (the reference's loop)."""
+    out = terms.select(dim, 0)
+    for k in range(1, terms.shape[dim]):
+        out = out + terms.select(dim, k)
+    return out
+
+
+def _exclusive_products(outside: torch.Tensor, msg: torch.Tensor):
+    """``outside[w] * prod_{sib != c} msg[w, sib]`` for every child ``c``:
+    ``[W, K, patterns, S]`` values and ``[W, K, patterns]`` fp64 logs (the
+    value times ``exp(logs)`` is the product).  Nodes of at most ``_CHUNK``
+    children multiply in child order, as the reference does (logs 0);
+    wider ones combine, renormalising after every step, the products of
+    the other members of the child's chunk of four, and prefix and suffix
+    products over the other chunks."""
+    w, k = msg.shape[:2]
+    if k <= _CHUNK:
+        vals = []
+        for c in range(k):
+            acc = outside
+            for sib in range(k):
+                if sib != c:
+                    acc = acc * msg[:, sib]
+            vals.append(acc)
+        return torch.stack(vals, dim=1), msg.new_zeros(msg.shape[:3], dtype=torch.float64)
+    n_chunks = k // _CHUNK
+    chunks = msg.reshape(w, n_chunks, _CHUNK, *msg.shape[2:])
+    within = _exclusive_products(torch.ones_like(chunks[:, :, 0]).flatten(0, 1),
+                                 chunks.flatten(0, 1))[0]          # [W * C, 4, p, S]
+    within, within_logs = _renormalised(within.reshape(w, n_chunks, _CHUNK, *msg.shape[2:]))
+    totals, total_logs = _renormalised(_sibling_product(chunks, 2))  # [W, C, p, S]
+    # prefix[j] = prod_{i < j} totals[i], suffix[j] = prod_{i > j}, renormalised
+    prefix, prefix_logs = [torch.ones_like(totals[:, 0])], [total_logs.new_zeros(total_logs[:, 0].shape)]
+    for j in range(1, n_chunks):
+        v, lg = _renormalised(prefix[-1] * totals[:, j - 1])
+        prefix.append(v)
+        prefix_logs.append(prefix_logs[-1] + total_logs[:, j - 1] + lg)
+    suffix, suffix_logs = [torch.ones_like(totals[:, 0])], [prefix_logs[0]]
+    for j in range(n_chunks - 2, -1, -1):
+        v, lg = _renormalised(suffix[-1] * totals[:, j + 1])
+        suffix.append(v)
+        suffix_logs.append(suffix_logs[-1] + total_logs[:, j + 1] + lg)
+    others, others_logs = _renormalised(
+        torch.stack(prefix, 1) * torch.stack(suffix[::-1], 1) * outside[:, None])
+    others_logs = others_logs + torch.stack(prefix_logs, 1) + torch.stack(suffix_logs[::-1], 1)
+    vals = others[:, :, None] * within
+    logs = others_logs[:, :, None] + within_logs
+    return vals.reshape(msg.shape), logs.reshape(msg.shape[:3])
+
+
+def branch_flux_vectors(
+    p_matrices: torch.Tensor,     # [n_nodes(+1), S, S]; row above each node
+    leaf_partials: torch.Tensor,  # [n_leaves, patterns, S]
+    root_freqs: torch.Tensor,     # [S]
+    data: PruningData,
+):
+    """Inside CLVs and parent-side outside vectors for EVERY branch, with
+    fp64 log-scales, so that one branch's model can be swapped without
+    re-pruning (counterpart of the JAX package's ``branch_flux_vectors``):
+
+        siteL(P_b -> M) = sum_ij up[b,p,i] M[i,j] clv[b,p,j]
+                          * exp(log_clv[b,p] + log_up[b,p])
+
+    This is the engine behind BUSTED's per-branch mixture-class profiles
+    (``BUSTED.bf:1060-1092``).  Returns ``(clv [n_nodes, patterns, S],
+    log_clv [n_nodes, patterns], up [n_nodes, patterns, S], log_up
+    [n_nodes, patterns])`` by node id, in the leaf partials' dtype (the
+    logs in fp64); row b describes the branch ABOVE node b (the root's
+    ``up`` row is 0).
+
+    Both passes run on the level plans.  Inside: each child's message
+    ``clv[c] @ P[c]^T``, their product per node, renormalised by its max
+    over states; outside: a node's vector pushed through its branch
+    (``up[n] @ P[n]``; the root's is pi) times the messages of a child's
+    siblings, renormalised.  Nodes of more than four children renormalise
+    every four (see the module docstring and :func:`_exclusive_products`);
+    nodes of at most four keep the reference's products and sums in its
+    order.  A product whose max is 0 is divided by 1 where the reference
+    divides by 1e-300 (which fp32 cannot hold); it stays 0 either way.
+    Not differentiable (it writes its buffers in place): BUSTED profiles
+    the branches after its fits.
+    """
+    n_nodes, n_leaves = data.n_nodes, data.n_leaves
+    patterns, states = leaf_partials.shape[1], leaf_partials.shape[2]
+    dtype, device = leaf_partials.dtype, leaf_partials.device
+    p_own = p_matrices[:n_nodes].to(dtype)
+    eye = torch.eye(states, dtype=dtype, device=device)
+    p_all = torch.cat([p_own, eye.expand(n_nodes + 1 - p_own.shape[0], states, states)])
+    f64 = dict(dtype=torch.float64, device=device)
+
+    # by storage slot: the leaves, each level's nodes, the all-ones scratch
+    # row at n_nodes that padded children gather (its message is all ones)
+    clv = torch.ones((n_nodes + 1, patterns, states), dtype=dtype, device=device)
+    clv[:n_leaves] = leaf_partials
+    log_clv = torch.zeros((n_nodes + 1, patterns), **f64)
+    messages = []
+    for (offset, _, _), plan in zip(data.ulevels, data.plans):
+        w, k = plan.child_storage.shape
+        slots = plan.child_storage.reshape(-1)
+        msg = torch.bmm(clv[slots], p_all[plan.child_branch.reshape(-1)].transpose(1, 2))
+        msg = msg.reshape(w, k, patterns, states)
+        messages.append(msg)
+        scale = _sequential_sum(log_clv[slots].reshape(w, k, patterns), 1)
+        if k <= _CHUNK:
+            prod = _sibling_product(msg, 1)
+        else:
+            chunks = _sibling_product(msg.reshape(w, k // _CHUNK, _CHUNK, patterns, states), 2)
+            prod, logs = _chunked_product(chunks, 1)
+            scale = scale + logs.to(torch.float64)
+        clv[offset: offset + w], lg = _renormalised(prod)
+        log_clv[offset: offset + w] = scale + lg
+
+    slot_node = np.empty(n_nodes + 1, dtype=np.int64)
+    slot_node[data.node_slots] = np.arange(n_nodes)
+    slot_node[n_nodes] = n_nodes
+    root_slot = int(data.node_slots[n_nodes - 1])
+    up = torch.zeros((n_nodes + 1, patterns, states), dtype=dtype, device=device)
+    log_up = torch.zeros((n_nodes + 1, patterns), **f64)
+    up[root_slot] = root_freqs.to(dtype)
+    for (offset, _, _), plan, msg in zip(reversed(data.ulevels), reversed(data.plans),
+                                         reversed(messages)):
+        w, k = plan.child_storage.shape
+        nodes = torch.as_tensor(slot_node[offset: offset + w], device=device)
+        outside = torch.bmm(up[offset: offset + w], p_all[nodes])    # up[n] @ P[n]
+        if offset <= root_slot < offset + w:
+            outside[root_slot - offset] = up[root_slot]               # the root's is pi
+        slots = plan.child_storage.reshape(-1)
+        child_logs = log_clv[slots].reshape(w, k, patterns)
+        vals, logs = _exclusive_products(outside, msg)
+        if k <= _CHUNK:
+            scale = []
+            for c in range(k):
+                sc = log_up[offset: offset + w]
+                for sib in range(k):
+                    if sib != c:
+                        sc = sc + child_logs[:, sib]
+                scale.append(sc)
+            scale = torch.stack(scale, 1)
+        else:
+            total = log_up[offset: offset + w] + child_logs.sum(dim=1)
+            scale = total[:, None] - child_logs
+        vals, lg = _renormalised(vals)
+        real = slots != n_nodes
+        up[slots[real]] = vals.reshape(w * k, patterns, states)[real]
+        log_up[slots[real]] = (scale + logs + lg).reshape(w * k, patterns)[real]
+    up[root_slot] = 0.0
+    log_up[root_slot] = 0.0
+    node_slots = torch.as_tensor(data.node_slots, device=device)
+    return clv[node_slots], log_clv[node_slots], up[node_slots], log_up[node_slots]

@@ -20,6 +20,8 @@ default is fp32.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -37,9 +39,32 @@ def _clip_negative(p: torch.Tensor) -> torch.Tensor:
     return torch.maximum(p, torch.zeros((), dtype=p.dtype, device=p.device))
 
 
+def ladder_depth(q: torch.Tensor, t: torch.Tensor, minimum: int, radius: float = 1.0,
+                 maximum: int = 40) -> int:
+    """Squaring-ladder depth at which no time saturates: the Taylor routes
+    scale ``t_eff = t * 2^ceil(log2 ||q||)`` (``||q||`` the largest row sum
+    of ``|q|`` over the batch ``q [..., S, S]``) and walk ``j = floor(t_eff
+    / radius)`` over the ladder's bits, so ``2^depth > j`` needs ``depth =
+    floor(log2(t_eff / radius)) + 1``; at least ``minimum``, at most
+    ``maximum``.  A saturated time shortens every branch of a generator
+    whose fast entries dominate its norm, and makes the likelihood jump
+    where ``ceil(log2 ||q||)`` steps (BUSTED's line searches meet such
+    jumps of ~0.4 lnL at large thetas and branch lengths; PRIME's rate
+    modifier reaches e^9.2).  Reads two scalars on the host."""
+    norm = torch.amax(torch.sum(torch.abs(q), dim=-1)).item()
+    t_max = torch.amax(t).item() if t.numel() else 0.0
+    if not (norm > 0 and t_max > 0):
+        return minimum
+    t_eff = t_max * 2.0 ** math.ceil(math.log2(max(norm, 1e-30)))
+    if not math.isfinite(t_eff):
+        return maximum
+    return min(maximum, max(minimum, math.floor(math.log2(max(t_eff / radius, 1.0))) + 1))
+
+
 def shared_taylor_propagators(
     q: torch.Tensor,             # [S, S] one shared generator
     t: torch.Tensor,             # [B] per-branch times
+    max_squarings: int = 11,
 ) -> torch.Tensor:
     """P(t_b) = expm(q * t_b) for ONE generator and MANY times.
 
@@ -54,8 +79,8 @@ def shared_taylor_propagators(
     # (fp32: 2^17/17! ~ 4e-10 — past fp32 round-off)
     terms = 28 if dtype == torch.float64 else 16
     # ladder/bit depth: supports ||Q t|| up to ~2^(s+1) before the
-    # saturation clamp below; depth 11 covers ||Q t|| ~ 4096
-    max_squarings = 11
+    # saturation clamp below; depth 11 covers ||Q t|| ~ 4096 (deeper:
+    # ``max_squarings = ladder_depth(q, t, 11, radius=2.0)``)
     s_dim = q.shape[-1]
     # normalize the generator to unit inf-norm; fold the factor into t
     norm = torch.clamp_min(torch.max(torch.sum(torch.abs(q), dim=-1)), 1e-30)
@@ -82,9 +107,10 @@ def shared_taylor_propagators(
     # t_eff = r + 2j, r in [0, 2).  The integer part is a binary product
     # against SHARED matrices M_k = expm(2 qn)^(2^k): each bit step is one
     # [B*S, S] x [S, S] GEMM.
-    j_int = torch.floor(t_eff * 0.5)
-    j = j_int.to(torch.int64)
-    r = t_eff - 2.0 * j_int                                # [B], in [0, 2)
+    # the ladder's bits hold j < 2^s: where 2^(s+1) - 0.01 rounds up to
+    # 2^(s+1) (fp32 past s = 16), clamp j (as an integer), and r with it
+    j = torch.clamp_max(torch.floor(t_eff * 0.5).to(torch.int64), 2 ** max_squarings - 1)
+    r = torch.clamp(t_eff - 2.0 * j.to(dtype), 0.0, 2.0)   # [B], in [0, 2]
 
     # coef[b, k] = r_b^k / k! via a stable running product
     coef = torch.cumprod(r[:, None] / ks[None, :], dim=1)  # [B, K]
@@ -100,8 +126,18 @@ def shared_taylor_propagators(
         bit = ((j >> k) & 1).to(torch.bool)
         pnew = (p.reshape(-1, s_dim) @ mk).reshape(p.shape)
         p = torch.where(bit[:, None, None], pnew, p)
-        mk = mk @ mk
+        mk = _square(mk, k + 1 >= 11)
     return row_renormalize(_clip_negative(p))
+
+
+def _square(m: torch.Tensor, renormalise: bool) -> torch.Tensor:
+    """``m @ m`` for the squaring ladders.  Past their default depths (11
+    and 12, where the JAX package stops) each square is made exactly
+    row-stochastic again: a square doubles the row sums' round-off, so 30
+    unrenormalised squares of an fp32 propagator (row sums 1 + 1e-7) reach
+    row sums of e^100."""
+    m = m @ m
+    return row_renormalize(_clip_negative(m)) if renormalise else m
 
 
 def taylor_action_factors(q: torch.Tensor, t: torch.Tensor, max_squarings: int = 12):
@@ -129,9 +165,11 @@ def taylor_action_factors(q: torch.Tensor, t: torch.Tensor, max_squarings: int =
     qn = q * torch.exp2(-m).to(dtype)[..., None, None]
     t_eff = t * torch.exp2(m).to(dtype)[..., None]        # [..., B]
     t_eff = torch.clamp_max(t_eff, 2.0 ** max_squarings - 0.01)
-    j_int = torch.floor(t_eff)
-    j = j_int.to(torch.int32)
-    r = t_eff - j_int
+    # j < 2^L also where 2^L - 0.01 rounds up to 2^L (fp32 past L = 17);
+    # j is int32 as in the JAX package, so L <= 31
+    j = torch.clamp_max(torch.floor(t_eff).to(torch.int64), 2 ** max_squarings - 1)
+    r = torch.clamp(t_eff - j.to(dtype), 0.0, 1.0)
+    j = j.to(torch.int32)
 
     # expm(qn) via the Taylor series at argument 1
     terms = taylor_action_terms(dtype)
@@ -143,8 +181,8 @@ def taylor_action_factors(q: torch.Tensor, t: torch.Tensor, max_squarings: int =
         pk = pk @ qn
         m1 = m1 + coef1[k] * pk
     m2p = [m1]
-    for _ in range(max_squarings - 1):
-        m2p.append(m2p[-1] @ m2p[-1])
+    for k in range(1, max_squarings):
+        m2p.append(_square(m2p[-1], k >= 12))
     return qn, torch.stack(m2p, dim=-3), r, j
 
 
@@ -178,6 +216,20 @@ def reversible_spectral(q: torch.Tensor, pi: torch.Tensor):
     left = u / sqrt_pi[..., :, None]
     right = u.transpose(-1, -2) * sqrt_pi[..., None, :]
     return left, lam, right
+
+
+def settle_zero_modes(lam: torch.Tensor) -> torch.Tensor:
+    """A generator's eigenvalues with the round-off taken off its zero
+    modes: ``eigh`` returns them at about ``+-eps * ||Q||``, and
+    ``exp(lam t)`` turns that into garbage once ``t`` passes ~1 / (eps
+    ||Q||): entries far above 1 (a positive mode), or a zero matrix that
+    row renormalisation makes the identity (a negative one), where P is
+    the stationary rows.  BUSTED's synonymous-rate classes reach such
+    times: a class of weight ``w`` normalises to a rate up to ``1/w``.
+    Eigenvalues at or above ``-64 eps max|lam|`` are set to 0 (a generator
+    has none above 0); the rest are untouched."""
+    tol = 64.0 * torch.finfo(lam.dtype).eps * torch.amax(lam.abs(), dim=-1, keepdim=True)
+    return torch.where(lam >= -tol, torch.zeros_like(lam), lam)
 
 
 def spectral_propagators(left, lam, right, t):

@@ -10,8 +10,9 @@ per-site routes FEL and MEME fit sites with, batched over sites, on the
 same schedule: ``single_site_log_likelihood_taylor`` (with its
 ``mix_weights`` mode), ``single_site_log_likelihood_spectral`` and
 ``single_site_log_likelihood_spectral_mixture``.  The padded ``lax.scan``
-variant (``schedule_pad``) and ``mixture_site_log_likelihoods`` are not
-ported yet.
+variant (``schedule_pad``) is not ported yet; ``mixture_site_log_likelihoods``
+(one pruning per rate class) is the grid form over the classes, as
+``models/bsrel.py`` calls it.
 
 Numerics kept from the reference, which make fp32 usable on deep trees:
 the identity propagator at the scratch index, max-renormalisation per
@@ -205,6 +206,7 @@ def site_log_likelihoods(
     leaf_partials: torch.Tensor,  # [n_leaves, patterns, S]
     root_freqs: torch.Tensor,     # [S]
     data: PruningData,
+    floor: "bool | None" = None,
 ) -> torch.Tensor:
     """Per-pattern log-likelihood ``log sum_s pi_s CLV_root[p, s]`` (fp64).
 
@@ -233,8 +235,12 @@ def site_log_likelihoods(
     differentiate it are held to the JAX package's fits, which clamp: where
     a line search probes a rate near 0, patterns of likelihood 0 score the
     floor with a zero gradient there, and an unclamped -inf would end the
-    step as non-finite instead, so the two packages' fits would part.  No
-    grid is differentiated and no fit runs on the grid form.
+    step as non-finite instead, so the two packages' fits would part.
+    ``floor`` overrides the default (the one-set form's clamp, the grid
+    form's none): the BS-REL mixture fits (``models/bsrel.py``) fold their
+    synonymous-rate classes into the grid form and differentiate it, and
+    keep the clamp of the JAX package's per-class prunings, which would
+    otherwise give a class of likelihood 0 a NaN gradient through its log.
     """
     grid = p_matrices.dim() == 4
     p_grid = p_matrices if grid else p_matrices[None]
@@ -293,6 +299,7 @@ def site_log_likelihoods(
         root_like = _halving_sum(root * root_freqs.to(dtype))
     else:
         root_like = root @ root_freqs.to(dtype)            # [G, patterns]
+    if (not grid) if floor is None else floor:
         tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=device)
         root_like = torch.maximum(root_like, tiny)
     out = torch.log(root_like.to(torch.float64)) + log_scale

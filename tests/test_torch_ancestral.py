@@ -106,3 +106,65 @@ def test_sample_ancestors_draws_equal(name):
                                       pr["tree"].children, 4, np.random.default_rng(5))
     assert ours.shape == (4, pr["tree"].n_nodes - pr["tree"].n_leaves, N_CODONS)
     np.testing.assert_array_equal(ours, ref)
+
+
+def _flux_both(pr):
+    ref = jancestral.branch_flux_vectors(jnp.asarray(pr["p"]), jnp.asarray(pr["leaves"]),
+                                         jnp.asarray(pr["pi"]), pr["jdata"], pr["jtree"].children)
+    ours = ancestral.branch_flux_vectors(torch.tensor(pr["p"]), torch.tensor(pr["leaves"]),
+                                         torch.tensor(pr["pi"]), pr["tdata"])
+    return ours, ref
+
+
+def _flux_site_logliks(flux, p):
+    """Each branch's ``log sum_ij up P clv + log_clv + log_up``: ``[branches,
+    patterns]``, every row the site lnL."""
+    clv, log_clv, up, log_up = (x.numpy() for x in flux)
+    nb = p.shape[0]
+    inner = np.einsum("bpi,bij,bpj->bp", up[:nb], p, clv[:nb])
+    with np.errstate(divide="ignore"):        # the reference's underflowed fluxes
+        return np.log(inner) + log_clv[:nb] + log_up[:nb]
+
+
+@pytest.mark.parametrize("name", sorted(TREES))
+def test_branch_flux_vectors_match(name):
+    """Inside and outside vectors and their log-scales equal the JAX
+    package's (the wide tree's 9-child node renormalises every four
+    children in the port, which changes only round-off at 30 codons), and
+    every branch's flux gives the pruning's site lnL."""
+    pr = _problem(TREES[name], seed=5)
+    ours, ref = _flux_both(pr)
+    for o, r in zip(ours, ref):
+        assert o.shape == np.asarray(r).shape
+    np.testing.assert_allclose(_flux_site_logliks(ours, pr["p"]),
+                               _flux_site_logliks(tuple(torch.as_tensor(np.asarray(x))
+                                                        for x in ref), pr["p"]),
+                               rtol=1e-12, atol=0)
+    sll = pruning.site_log_likelihoods(torch.tensor(pr["p"]), torch.tensor(pr["leaves"]),
+                                       torch.tensor(pr["pi"]), pr["tdata"]).numpy()
+    np.testing.assert_allclose(_flux_site_logliks(ours, pr["p"]), np.broadcast_to(
+        sll, (pr["p"].shape[0], sll.shape[0])), rtol=1e-12, atol=0)
+    if name != "wide":
+        for o, r in zip(ours, ref):
+            np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-12, atol=1e-300)
+
+
+def test_branch_flux_wide_star_does_not_underflow():
+    """A 400-leaf star: the reference multiplies all 400 child messages
+    (inside) and all 399 siblings (outside) before it renormalises, and its
+    fluxes fall to the 1e-300 floor; the port's, renormalised every four
+    children, give every branch the site lnL of a log-space computation."""
+    n = 400
+    newick = "(" + ",".join(f"t{i}:0.1" for i in range(n)) + ")"
+    pr = _problem(newick, concentration=1.0, seed=4)
+    ours, ref = _flux_both(pr)
+    msgs = np.einsum("cij,cpj->cpi", pr["p"], pr["leaves"])                 # [c, p, i]
+    log_site = np.log(np.exp(np.log(pr["pi"])[None, :] + np.log(msgs).sum(axis=0)
+                             - (np.log(msgs).sum(axis=0)).max(axis=1, keepdims=True)
+                             ).sum(axis=1)) + np.log(msgs).sum(axis=0).max(axis=1)
+    assert (log_site < -800).all()
+    got = _flux_site_logliks(ours, pr["p"])
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.broadcast_to(log_site, got.shape), rtol=1e-12, atol=0)
+    ref_flux = _flux_site_logliks(tuple(torch.as_tensor(np.asarray(x)) for x in ref), pr["p"])
+    assert not np.isfinite(ref_flux).all() or (np.abs(ref_flux - log_site) > 1.0).all()

@@ -49,7 +49,8 @@ def test_fel_flags_match_the_jax_cli():
 
 
 @pytest.mark.parametrize("method", ["slac", "meme", "simulate", "fubar", "b-still",
-                                    "contrast-fel", "contrast-meme"])
+                                    "contrast-fel", "contrast-meme", "prime", "busted",
+                                    "busted-ph", "error-filter", "clade-support"])
 def test_method_flags_match_the_jax_cli(method):
     assert _fel_flags(cli.build_parser(), method) == _fel_flags(jcli.build_parser(), method)
 
@@ -79,3 +80,29 @@ def test_module_entry_point_parses():
     out = subprocess.run([sys.executable, "-m", "hyphy_tpu_torch", "fel", "--help"],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "--multiple-hits" in out.stdout
+
+
+def test_busted_family_and_post_processors_run_on_the_cpu(tiny):
+    """``prime``, ``busted --error-sink`` then ``error-filter`` on its JSON,
+    and ``busted-ph`` then ``clade-support`` on its JSON, in-process on the
+    CPU (the method runs capped under ``warmup``)."""
+    d = tiny["dir"]
+    tree = open(tiny["tree"]).read().strip()
+    labelled = tree.replace("t0:", "t0{FG}:").replace("t1:", "t1{FG}:")
+    base = ["--alignment", tiny["fasta"]]
+    prime_json, busted_json, ph_json = d / "p.json", d / "b.json", d / "ph.json"
+    assert cli.main(["warmup", "prime"] + base + ["--tree", tree, "--output", str(prime_json)]) == 0
+    table = np.asarray(json.loads(prime_json.read_text())["MLE"]["content"]["0"])
+    assert table.shape == (N_CODONS, 18) and np.isfinite(table).all()
+    assert cli.main(["warmup", "busted"] + base + ["--tree", tree, "--output", str(busted_json),
+                                                   "--error-sink", "--srv", "No"]) == 0
+    masked = d / "masked.fasta"
+    assert cli.main(["error-filter", "--json", str(busted_json), "--output", str(masked)]) == 0
+    seqs = [ln for ln in masked.read_text().splitlines() if ln and not ln.startswith(">")]
+    assert all(len(x) == 3 * N_CODONS for x in seqs[:N_TAXA])
+    assert json.loads((d / "b.json.filter.json").read_text())["filter"].keys()
+    assert cli.main(["warmup", "busted-ph"] + base + ["--tree", labelled, "--branches", "FG",
+                                                      "--output", str(ph_json), "--srv", "No"]) == 0
+    assert "BUSTED-PH" in json.loads(ph_json.read_text())
+    assert cli.main(["clade-support", "--json", str(ph_json)]) == 0
+    assert json.loads((d / "ph.json.ECB.json").read_text())["0"]["perplexity"] >= 1.0

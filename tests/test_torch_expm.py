@@ -81,3 +81,59 @@ def test_row_renormalize():
     np.testing.assert_allclose(ours, np.asarray(jexpm.row_renormalize(jnp.asarray(p))),
                                atol=1e-15)
     np.testing.assert_allclose(ours.sum(-1), 1.0, atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_deep_ladders_stay_stochastic(dtype, atol):
+    """Ladders past the default depth (``expm.ladder_depth`` at ||Q t|| ~
+    1e9) keep their squares row-stochastic: the propagators equal the
+    chain's stationary rows, where unrenormalised fp32 squares overflow."""
+    rng = np.random.default_rng(3)
+    q, pi = _mg94_generator(rng)
+    qt = torch.tensor(q * 1e3, dtype=dtype)
+    t = torch.tensor([1e6, 2.5e5], dtype=dtype)
+    depth = texpm.ladder_depth(qt, t, 11, radius=2.0)
+    assert depth > 25
+    p = texpm.shared_taylor_propagators(qt, t, depth)
+    np.testing.assert_allclose(p.double().numpy(), np.broadcast_to(pi, p.shape), rtol=0,
+                               atol=atol)
+    qn, m2p, r, j = texpm.taylor_action_factors(qt[None], t,
+                                                texpm.ladder_depth(qt, t, 12, maximum=31))
+    assert torch.isfinite(m2p).all()
+    np.testing.assert_allclose(m2p[0, -1].double().numpy().sum(axis=1), 1.0, atol=atol)
+
+
+@pytest.mark.parametrize("omega", [0.0, 1.0, 1e4])
+def test_settled_zero_modes_reach_the_stationary_limit(omega):
+    """``settle_zero_modes`` takes the round-off off a generator's zero
+    modes, so that the spectral propagators at t = 1e17 equal the chain's
+    limit: the stationary rows, or at omega 0, where the codon chain is
+    reducible with one zero mode per amino acid, ``expm(Q 1e4)``."""
+    import scipy.linalg
+
+    from hyphy_tpu.data.genetic_code import GeneticCode as JCode
+    from hyphy_tpu.models.frequencies import _codon_from_corners
+    from hyphy_tpu_torch.data.genetic_code import GeneticCode
+    from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
+    from hyphy_tpu_torch.models.codon import MG94Base
+
+    corners = np.random.default_rng(3).dirichlet(np.ones(4), size=3).T
+    pi = np.asarray(_codon_from_corners(corners, JCode("Universal")))
+    model = MG94Base(GeneticCode("Universal"), corners, pi, device="cpu")
+    thetas = {f"theta_{p}": torch.tensor(v, dtype=torch.float64)
+              for p, v in zip(("AC", "AT", "CG", "CT", "GT"), (0.3, 0.2, 0.25, 1.1, 0.4))}
+    q_syn, q_non = model.basis_matrices(thetas)
+    q = fill_diagonal_from_rows(q_syn + omega * q_non)
+    left, lam, right = texpm.reversible_spectral(q, torch.tensor(pi))
+    settled = texpm.settle_zero_modes(lam)
+    assert int((settled == 0).sum()) == (21 if omega == 0 else 1)
+    assert torch.equal(settled[settled != 0], lam[settled != 0])
+    p = texpm.spectral_propagators(left, settled, right, torch.tensor([1e17], dtype=torch.float64))
+    ref = scipy.linalg.expm(q.numpy() * 1e4) if omega == 0 else np.broadcast_to(pi, p[0].shape)
+    np.testing.assert_allclose(p[0].numpy(), ref, rtol=0, atol=1e-10)
+    # at an ordinary time the settled modes move P by the round-off they
+    # carried (lam 1.8e-12 at omega 1e4)
+    t = torch.tensor([0.05, 0.7], dtype=torch.float64)
+    np.testing.assert_allclose(texpm.spectral_propagators(left, settled, right, t).numpy(),
+                               texpm.spectral_propagators(left, lam, right, t).numpy(),
+                               rtol=0, atol=1e-11)

@@ -38,23 +38,33 @@ def carried_mg94(jmg, md):
     frequencies, branch rates (free, or its scaler times the GTR lengths
     when the fit kept them proportional, as SLAC's does) and multiple-hit
     option."""
-    parts = []
-    for m, data in zip(jmg.parts, md.parts):
-        free = m.model.free_lengths
-        model = MG94xREVPartitionedOmega(
-            data.genetic_code, m.corner_freqs, m.codon_freqs,
-            nuc_lengths=np.array(m.alphas if free else m.model.nuc_lengths),
-            branch_groups=data.branch_groups,
-            n_groups=m.model.n_groups, free_lengths=free,
-            multiple_hits=m.model.multiple_hits, device="cpu")
-        parts.append(tcommon.MG94Fit(
-            loglik=m.loglik, params=_params(m.params),
-            branch_lengths=np.array(m.branch_lengths), alphas=np.array(m.alphas),
-            betas=np.asarray(m.betas), omegas=np.asarray(m.omegas),
-            corner_freqs=np.asarray(m.corner_freqs), codon_freqs=np.asarray(m.codon_freqs),
-            n_parameters=m.n_parameters, model=model))
+    parts = [carried_mg94_fit(m, data) for m, data in zip(jmg.parts, md.parts)]
     return tcommon.MultiMG94Fit(loglik=jmg.loglik, parts=parts, omegas=parts[0].omegas,
                                 n_parameters=jmg.n_parameters)
+
+
+def carried_mg94_fit(m, data):
+    """One JAX MG94 fit as the port's, on the port's ``data``."""
+    free = m.model.free_lengths
+    model = MG94xREVPartitionedOmega(
+        data.genetic_code, m.corner_freqs, m.codon_freqs,
+        nuc_lengths=np.array(m.alphas if free else m.model.nuc_lengths),
+        branch_groups=data.branch_groups,
+        n_groups=m.model.n_groups, free_lengths=free,
+        multiple_hits=m.model.multiple_hits, device="cpu")
+    return tcommon.MG94Fit(
+        loglik=m.loglik, params=_params(m.params),
+        branch_lengths=np.array(m.branch_lengths), alphas=np.array(m.alphas),
+        betas=np.asarray(m.betas), omegas=np.asarray(m.omegas),
+        corner_freqs=np.asarray(m.corner_freqs), codon_freqs=np.asarray(m.codon_freqs),
+        n_parameters=m.n_parameters, model=model)
+
+
+def carried_busted(jparams, jmg, data):
+    """A JAX BUSTED parameter dict (named scalars and the ``t`` vector) and
+    its MG94 fit as the port's: (params, MG94Fit), so that both packages
+    evaluate the same point."""
+    return _params(jparams), carried_mg94_fit(jmg, data)
 
 
 def spy_fits(jcommon, mp, seen):
