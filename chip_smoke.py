@@ -5,6 +5,7 @@
     python3 chip_smoke.py --full-fit         # the same, with FEL's fits run to convergence
     python3 chip_smoke.py --precision-check  # phases 1-3, then FEL's fp32 vs fp64 site calls
     python3 chip_smoke.py --busted-check     # phases 1-3, then BUSTED uncapped in fp32 and fp64
+    python3 chip_smoke.py --relax-check      # phases 1-3, then RELAX and aBSREL uncapped
 
 Run from the root of a checkout; it builds the CUDA kernels from the
 checkout's sources.  Phases, each of which fails the run if it fails:
@@ -49,7 +50,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      evaluation is host launch time): seconds of the CI and of the
      bootstrap apart, LB <= MLE <= UB, bootstrap p in multiples of 1/11;
   (after phase 6) the Nelder-Mead's fused four-probe body against its
-     sequential probes on phase 6's objective at 128, 512 and 2048 sites:
+     sequential probes on phase 6's objective at 128 and 512 sites:
      ms and launches per iteration, peak memory, results equal bit for bit;
   9. SLAC at full width: ``simulated_codon_alignment(1000, 2048, seed=11)``
      with omega = 5 at nine planted codons, through ``warmup slac
@@ -60,7 +61,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      the JSON (headers, finite tables, 2.5% <= median <= 97.5%);
  10. ``warmup simulate --replicates 2`` on phase 9's alignment: the
      replicates have its taxa and codons;
- 11. MEME on phase 9's alignment cut to 256 codons (the EBF's items grow
+ 11. MEME on phase 9's alignment cut to 128 codons (the EBF's items grow
      with codons x tested branches), through ``warmup meme``: seconds per
      stage (FEL, candidates, alternative, null, EBF), the EBF's items and
      chunks, K1 launches, one batched mixture evaluation timed and
@@ -75,7 +76,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      (0.03 per pattern), two points folded into one call against each alone
      (equal) and against the one-set pruning (1e-5 relative), the posterior
      summing to 1, 7 of 9 planted codons at P[beta > alpha] >= 0.9;
- 13. B-STILL on phase 9's alignment cut to 512 codons, ``warmup b-still
+ 13. B-STILL on phase 9's alignment cut to 256 codons, ``warmup b-still
      --grid 20``: seconds, K1 launches, the JSON, finite EBFs;
  14. contrast-FEL at full width (G = 3) on a second alignment: two
      disjoint ~250-leaf clades of the same tree labelled FG and REF, omega
@@ -86,13 +87,13 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      Taylor, 64 sites) and fp32 vs fp64, the substitution counts card vs
      host (equal);
  15. contrast-MEME on that alignment cut to 256 codons, ``warmup
-     contrast-meme ... --permutations 5``: seconds per stage (alternative,
+     contrast-meme ... --permutations 3``: seconds per stage (alternative,
      null, pairwise, permutations), the solves' items and chunks, K1
      launches; the mixture site lnL with per-item permuted set maps card vs
-     host (fp64 Taylor, 64 sites), permutation p in multiples of 1/6;
- 16. ``warmup meme --resample 5`` on phase 9's alignment cut to 64 codons,
+     host (fp64 Taylor, 64 sites), permutation p in multiples of 1/4;
+ 16. ``warmup meme --resample 3`` on phase 9's alignment cut to 64 codons,
      with the fused probes: the simulation's and the refits' seconds, p in
-     multiples of 1/6, the card's fp64 family propagators of two sites
+     multiples of 1/4, the card's fp64 family propagators of two sites
      against ``scipy.linalg.expm`` on three branches (1e-10).
 
  17. PRIME at full width on phase 9's alignment, ``warmup prime``: seconds
@@ -111,7 +112,9 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      folded classes equal to each class pruned alone; the --srv-hmm,
      --srv-branchsite and --multiple-hits Double+Triple objectives card vs
      host at the same point; LRT >= 0, p in [0, 1], finite evidence
-     ratios, the JSON's keys;
+     ratios, the JSON's keys; ms per value and value+gradient with the
+     fp32 Taylor propagators by the per-group loop and by the batched
+     per-branch route;
  19. ``warmup busted --error-sink`` on phase 9's alignment cut to 512
      codons, then ``error-filter`` on its JSON: the seconds of the
      branch-pinned site lnLs; class posteriors summing to 1, the pinned
@@ -119,9 +122,40 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      (1e-5 relative), every masked sequence of full length;
  20. ``warmup busted-ph --branches FG`` on phase 14's alignment cut to 512
      codons, then ``clade-support`` on its JSON: seconds per test, three p
-     in [0, 1], a perplexity >= 1.
+     in [0, 1], a perplexity >= 1;
+ 21. RELAX at full width on phase 14's alignment, ``warmup relax --test FG
+     --reference REF --models All`` (the unlabelled branches the nuisance
+     set: 3 groups for the alternative, one per branch, 1998, for the
+     general-descriptive model): seconds per stage (GTR, MG94, general
+     descriptive, alternative, null, partitioned descriptive, JSON), ms per
+     value and value+gradient of the general-descriptive and alternative
+     objectives, launches, host syncs and propagator calls per
+     general-descriptive value, one value profiled, K1 launches, peak
+     memory, the alternative's ms on both forms of the fp32 Taylor route;
+     the general-descriptive site lnL card vs host (fp64 Taylor, 64
+     patterns, 1e-9 relative) and fp32 vs fp64 Taylor (0.03 per pattern),
+     the batched per-branch propagators against the per-group loop's calls
+     on 16 branches (fp32 1e-6, fp64 1e-12, both timed) and the fp64 ones
+     against ``scipy.linalg.expm`` on three branches (1e-10); LRT >= 0, p in
+     [0, 1], Test omegas = Reference omegas ^ K at equal weights (1e-6), the
+     JSON's fits;
+ 22. RELAX group mode on phase 14's alignment cut to 512 codons, ``warmup
+     relax --groups FG,REF,Unlabeled --reference Unlabeled``: seconds per
+     stage, K1 launches, ms on both forms of the fp32 Taylor route; df = 2,
+     the two K, the group objective card vs host (fp64 Taylor, 64 patterns,
+     1e-9 relative);
+ 23. aBSREL on ``simulated_codon_alignment(64, 2048, seed=11)``, ``warmup
+     absrel --srv Yes``: seconds per stage (baseline, step-up with its fits
+     and classes added, polish, branch nulls), ms per value and
+     value+gradient, K1 launches, peak memory; two branches' nulls, with
+     their last omega set to 4, fitted on the card under the same cap (no
+     lower than the refit full model); the objective card vs host
+     at mixed class counts 1-5 (fp64 Taylor, 1e-9 relative; also with
+     Double+Triple per-branch bases), fp32 vs fp64 (0.03 per pattern), the
+     SRV posteriors summing to 1 and rates of unit mean (1e-6), Holm-corrected
+     p non-decreasing in the uncorrected p.
 
-``--precision-check`` runs phases 1-3 and then, in place of phases 4-20,
+``--precision-check`` runs phases 1-3 and then, in place of phases 4-23,
 FEL's per-site stage on phase 8's input at one capped global fit, run to
 convergence in fp32 and in fp64: the same p <= 0.1 set, and alpha and beta
 within the stated tolerance at all but 5% of the sites.  ``--busted-check``
@@ -134,11 +168,20 @@ every lnL finite and below 0, the unconstrained no lower than the
 constrained; on the planted input in fp64, the fit at or above every
 point of a scan near the planted truth; the two precisions within 10 lnL
 and calling alike; p <= 0.05 on the control.  Every input runs; the phase
-fails after the last if one failed.
+fails after the last if one failed.  ``--relax-check`` runs phases 1-3 and
+then RELAX ``--models Minimal`` with every fit run to convergence, in fp32
+and fp64, on phase 14's alignment cut to 512 codons (alternative no lower
+than the null, the precisions within 10 lnL and calling alike at 0.05; the
+fp64 general-descriptive value at the alternative's MLE on the spectral
+route timed, K6 on 5994 families, and held to the per-branch Taylor route
+at 1e-9 relative), and
+aBSREL uncapped in fp32 on the episodic control along 32 taxa, 512 codons
+(the full model no lower than any branch null); each fit's counters are
+reported.
 
 K1's ``launches`` on the kernels line sum the phases that drive a method
-(4, 7-20, or the precision or BUSTED check), each counted from 0 around
-its run.  It
+(4, 7-23, or the precision, BUSTED or RELAX check), each counted from 0
+around its run.  It
 imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
 and ``{"ok": true, "device": {...}}``; a longer record goes to
@@ -220,15 +263,16 @@ MH_SITE_POINTS = [(1.0, 1.0, 0.05, 0.05), (0.01, 0.1, 1.0, 1.0), (10.0, 50.0, 10
 # phase 8: codons of the CI / bootstrap run, and bootstrap replicates
 CI_CODONS, N_RESAMPLE = 128, 10
 # the fused Nelder-Mead probes: sites, and iterations timed
-FUSED_SITES, FUSED_ITERATIONS = [128, 512, 2048], 6
+FUSED_SITES, FUSED_ITERATIONS = [128, 512], 6
 # phases 9-11: an alignment simulated along random_tree_newick(N_TAXA, SEED)
 # with omega = PLANTED_OMEGA at these codons (0.3 elsewhere)
 PLANTED_SITES, PLANTED_OMEGA = [37, 101, 190, 263, 333, 402, 475, 1100, 1700], 5.0
 # phase 9: SLAC's ancestral samples; patterns held card vs host; root lnL bound
 SLAC_SAMPLES, SLAC_HOST_PATTERNS, SLAC_LNL_REL_BOUND = 10, 512, 1e-9
 # phase 11: MEME's codons (the EBF's items grow with codons x tested
-# branches: ~1.02 M at 512); sites and forced items per chunk of the split
-MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 256, 64, 997
+# branches: ~1.02 M at 512; cut to 128 for phases 21-23's room in the
+# chip budget); sites and forced items per chunk of the split
+MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 128, 64, 997
 # phase 12: FUBAR's grid (points per axis); grid points held fp32 vs fp64
 # (alpha > 0 and beta > 0: where alpha or beta is 0 the fp64 spectral route
 # gives round-off for unreachable codons, ROADMAP 3.5) and folded vs one by
@@ -237,17 +281,17 @@ GRID_POINTS, GRID_FP32_POINTS, GRID_FOLD_POINTS = 20, [66, 128, 211, 295], [150,
 GRID_FP32_BOUND = 0.03      # |d site lnL|, fp32 Taylor vs fp64 spectral, per pattern
 GRID_FOLD_REL_BOUND = 1e-5  # folded grid form vs the one-set form, fp32, relative
 # phase 13: B-STILL's codons (cut for the chip budget)
-BSTILL_CODONS = 512
+BSTILL_CODONS = 256
 FORCED_PATTERNS = 64   # B-STILL's pass 2 again with the chunk forced past K1's node limit
 # phase 14: the contrast alignment: two disjoint clades of ~250 leaves of
 # random_tree_newick(N_TAXA, SEED) labelled FG and REF (the rest background,
 # G = 3), omega = PLANTED_OMEGA on the FG branches only at PLANTED_SITES
 CONTRAST_CLADES, CONTRAST_LABELS = [250, 250], ["FG", "REF"]
 # phase 15: contrast-MEME's codons and permutations
-CMEME_CODONS, CMEME_PERMUTATIONS = 256, 5
+CMEME_CODONS, CMEME_PERMUTATIONS = 256, 3
 # phase 16: MEME --resample's codons and replicates; sites and branches of
 # the propagator check against scipy
-RESAMPLE_CODONS, MEME_RESAMPLE = 64, 5
+RESAMPLE_CODONS, MEME_RESAMPLE = 64, 3
 RESAMPLE_CHECK_SITES, RESAMPLE_CHECK_BRANCHES = 2, 3
 RESAMPLE_EXPM_BOUND = 1e-10
 # phase 17: PRIME's per-site objective card vs host (fp64 Taylor) at these
@@ -267,6 +311,29 @@ BUSTED_SPECTRAL_HOST_REL_BOUND = 1e-6
 ERROR_SINK_CODONS, POSTERIOR_SUM_BOUND, REMIX_REL_BOUND = 512, 1e-6, 1e-5
 # phase 20: BUSTED-PH's codons on the contrast alignment
 BUSTEDPH_CODONS = 512
+# phase 21: RELAX classic at full width on the contrast alignment (FG
+# tested, REF the reference, the unlabelled branches the nuisance set);
+# branches of the propagators held against scipy; the batched per-branch
+# propagators against the per-group route's per-family calls on
+# RELAX_LOOP_BRANCHES branches (absolute, per precision; the loop takes
+# ~4 ms per family on an H100, ~20 s per precision over all 1998 groups); Test
+# omegas against Reference omegas ^ K, and their weights (relative)
+RELAX_EXPM_BRANCHES, RELAX_LOOP_BRANCHES = 3, 16
+RELAX_LOOP_BOUND = {"float32": 1e-6, "float64": 1e-12}
+RELAX_POWER_BOUND = 1e-6
+# phase 22: RELAX group mode's codons
+RELAX_GROUP_CODONS = 512
+# phase 23: aBSREL's taxa: the step-up fits every branch at least once, one
+# capped fit each, so 1000 taxa (1998 branches) would not fit the run
+ABSREL_TAXA = 64
+# --relax-check: RELAX --models Minimal uncapped on the contrast alignment
+# cut to RELAX_CHECK_CODONS codons in fp32 and fp64; aBSREL uncapped in fp32
+# on the episodic alignment (below) along ABSREL_CHECK_TAXA taxa, of
+# ABSREL_CHECK_CODONS codons, where branches carry omega > 1 and get nulls
+RELAX_CHECK_CODONS, ABSREL_CHECK_TAXA, ABSREL_CHECK_CODONS = 512, 32, 512
+# --relax-check: the fp64 general-descriptive value (one group per branch)
+# on the spectral route against the per-branch Taylor route (relative)
+RELAX_SPECTRAL_REL_BOUND = 1e-9
 # --busted-check: BUSTED uncapped in fp32 and fp64 on three inputs, each
 # fit's lnL finite and below 0 and the unconstrained lnL no lower than the
 # constrained one less ALT_NULL_SLACK (the refit from the constrained MLE
@@ -2414,8 +2481,9 @@ def _bsrel_copy(torch, engine, data, device, dtype, patterns=None, basis=None):
 def phase_busted(torch, fasta: str, tree_path: str, tmp: str) -> dict:
     """BUSTED at full width on phase 9's alignment through ``warmup busted``
     (SRV 3 x 3, 2 starting points): seconds per stage, ms per value and
-    gradient, K1 launches per evaluation, peak memory; card vs host, fp32
-    vs fp64, the folded classes, the options' objectives; the JSON."""
+    gradient (also on both forms of the fp32 Taylor route), K1 launches per
+    evaluation, peak memory; card vs host, fp32 vs fp64, the folded
+    classes, the options' objectives; the JSON."""
     import numpy as np
 
     from hyphy_tpu_torch import cli
@@ -2473,6 +2541,7 @@ def phase_busted(torch, fasta: str, tree_path: str, tmp: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     value_and_grad()
     res["value_grad_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["routes"] = _route_ms(torch, engine, loglik, params)
 
     def unpack_at(eng, p):
         om = torch.stack([p[f"test_omega_{i}"] for i in (1, 2, 3)])
@@ -2697,9 +2766,9 @@ def phase_busted_ph(torch, aln, tree_path: str, tmp: str) -> dict:
     return res
 
 
-def _episodic_alignment(tmp: str, n_codons: int):
+def _episodic_alignment(tmp: str, n_codons: int, n_taxa=None):
     """BUSTED's positive control: codons drawn along ``random_tree_newick
-    (N_TAXA, SEED)`` with ``utils/simulate.py::simulate_states`` under
+    (n_taxa or N_TAXA, SEED)`` with ``utils/simulate.py::simulate_states`` under
     ``synth._mg94_generator``'s omega-0.3 generator, except that in each
     block of EPISODIC_BLOCK codons a fresh random EPISODIC_SHARE of the
     branches runs omega EPISODIC_OMEGA at the same synonymous rate: the
@@ -2714,8 +2783,9 @@ def _episodic_alignment(tmp: str, n_codons: int):
     from hyphy_tpu_torch.utils.simulate import simulate_states, states_to_alignment
 
     t0 = time.perf_counter()
+    n_taxa = n_taxa or N_TAXA
     gc = GeneticCode("Universal")
-    newick = synth.random_tree_newick(N_TAXA, seed=SEED)
+    newick = synth.random_tree_newick(n_taxa, seed=SEED)
     tree = Tree.from_newick(newick)
     lengths = np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6)
     slow = synth._mg94_generator(gc, 2.5, 0.3)
@@ -2734,9 +2804,9 @@ def _episodic_alignment(tmp: str, n_codons: int):
         p = np.where(chosen[:, None, None], p_fast, p_slow)
         states[:, lo:hi] = simulate_states(tree, p, pi, hi - lo, rng)
     names, seqs = states_to_alignment(states, tree, "codon", gc)
-    fasta = os.path.join(tmp, "episodic.fasta")
+    fasta = os.path.join(tmp, f"episodic_{n_taxa}.fasta")
     _write_fasta(fasta, names, seqs)
-    log(f"[busted-check] episodic alignment of {N_TAXA} taxa x {n_codons} codons, omega "
+    log(f"[episodic] alignment of {n_taxa} taxa x {n_codons} codons, omega "
         f"{EPISODIC_OMEGA} on {EPISODIC_SHARE:.0%} of the branches per block of "
         f"{EPISODIC_BLOCK} codons: {time.perf_counter() - t0:.2f} s on the host")
     return fasta, newick
@@ -2780,17 +2850,10 @@ def _busted_uncapped(torch, fasta: str, newick: str, label: str, share=None) -> 
     from hyphy_tpu_torch.methods import busted
 
     res = {}
-    original = busted.maximize
     for name in ("float32", "float64"):
-        fits = []
-
-        def recorded(*args, **kwargs):
-            fits.append({})
-            return original(*args, stats=fits[-1], **kwargs)
-
+        fits, restore = _fit_recorder(busted)
         os.environ["HYPHY_TPU_PRECISION"] = name
         os.environ["HYPHY_TPU_VERBOSITY"] = "1"   # one stderr line per optimizer stop
-        busted.maximize = recorded
         try:
             t0 = time.perf_counter()
             r = busted.run(fasta, tree=newick, starting_points=2, device=DEVICE)
@@ -2798,7 +2861,7 @@ def _busted_uncapped(torch, fasta: str, newick: str, label: str, share=None) -> 
             seconds = time.perf_counter() - t0
             scan = _planted_scan(torch, r, share) if share and name == "float64" else None
         finally:
-            busted.maximize = original
+            restore()
             del os.environ["HYPHY_TPU_PRECISION"], os.environ["HYPHY_TPU_VERBOSITY"]
         res[name] = {"seconds": seconds, "mg94_lnl": r.mg94.loglik,
                      "unconstrained_lnl": r.unconstrained_lnl, "null_lnl": r.null_lnl,
@@ -2806,7 +2869,7 @@ def _busted_uncapped(torch, fasta: str, newick: str, label: str, share=None) -> 
         log(f"[busted-check] {label} {name}: {seconds:.2f} s; MG94 lnL {r.mg94.loglik:.6f}, "
             f"unconstrained {r.unconstrained_lnl:.6f}, null {r.null_lnl:.6f}, LRT {r.lrt:.4f}, "
             f"p {r.p_value:.3e}; fits (iterations, restarts, evaluations, s, stop): "
-            f"{[(f['iterations'], f['restarts'], f['evaluations'], round(f['seconds'], 2), f['stop']) for f in fits]}")
+            f"{_fit_summary(fits)}")
         if scan is not None:
             res[name]["scan"] = scan
             log(f"[busted-check] {label} {name}: fitted mean omega {scan['fitted_mean_omega']:.6f}; "
@@ -2942,6 +3005,673 @@ def phase_precision(torch, tmp: str) -> dict:
     return res
 
 
+def _syncs(torch, fn) -> list:
+    """Where ``fn`` makes the host wait for the card (file:line of each
+    sync that ``torch.cuda``'s sync debug mode warns about)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen
+            if "synchroniz" in str(w.message)]
+
+
+def _calls_in(module, names, fn) -> dict:
+    """How often ``fn`` calls each of ``module``'s functions ``names``."""
+    counts = {name: 0 for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def counted(name):
+        def wrapped(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return wrapped
+
+    for name in names:
+        setattr(module, name, counted(name))
+    try:
+        fn()
+    finally:
+        for name, original in saved.items():
+            setattr(module, name, original)
+    return counts
+
+
+def _value_stats(torch, loglik, params, label: str) -> dict:
+    """ms per value and value+gradient of ``loglik`` at ``params``, K1
+    launches per value, and one value under the profiler."""
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    def value_and_grad():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        v = loglik(p)
+        v.backward()
+        return v
+
+    out = {}
+    before = level_products.launches
+    with torch.no_grad():
+        loglik(params)
+    out["k1_launches_per_value"] = level_products.launches - before
+    out["value_grad_ms"] = _eval_stats(wall_ms(torch, value_and_grad, 3))
+    with torch.no_grad():
+        out["value_ms"] = _eval_stats(wall_ms(torch, lambda: loglik(params), 3))
+        out["profile_value"] = profile_ms(torch, lambda: loglik(params),
+                                          os.path.join("chiprun_out", f"profile_{label}.txt"))
+    torch.cuda.reset_peak_memory_stats()
+    value_and_grad()
+    out["value_grad_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _route_ms(torch, engine, loglik, params) -> dict:
+    """ms per fp32 value and value+gradient of ``loglik`` with ``engine``'s
+    Taylor propagators built by the per-group loop and by one batched
+    per-branch call (``bsrel.BATCHED_TIMES_PER_GROUP`` set to 0 and to
+    every size), and the form the engine takes by itself."""
+    from hyphy_tpu_torch.models import bsrel
+
+    def value_and_grad():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loglik(p).backward()
+
+    saved, out = bsrel.BATCHED_TIMES_PER_GROUP, {}
+    try:
+        for name, per_group_times in (("loop", 0), ("batched", math.inf)):
+            bsrel.BATCHED_TIMES_PER_GROUP = per_group_times
+            with torch.no_grad():
+                value = _eval_stats(wall_ms(torch, lambda: loglik(params), 3))["median"]
+            out[name] = {"value_ms": value,
+                         "value_grad_ms": _eval_stats(wall_ms(torch, value_and_grad, 3))["median"]}
+    finally:
+        bsrel.BATCHED_TIMES_PER_GROUP = saved
+    out["groups"], out["branches"] = engine.n_groups, int(params["t"].shape[0])
+    times = params["t"].expand(engine.srv_classes, -1)
+    out["taken"] = "batched" if engine._batched(times) else "loop"
+    log(f"[routes] {out}")
+    return out
+
+
+def _log_values(tag: str, name: str, stats: dict) -> None:
+    prof = stats["profile_value"]
+    log(f"[{tag}] {name}: value {_rounded(stats['value_ms'])} ms, value+gradient "
+        f"{_rounded(stats['value_grad_ms'])} ms (peak {stats['value_grad_peak_gb']:.2f} GB), "
+        f"{stats['k1_launches_per_value']} K1 launches per value; one value profiled: wall "
+        f"{prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in {prof['launches']} "
+        f"launches, idle share {prof['idle_share']:.3f}; top {prof['top'][:3]}")
+
+
+def _rel(a, b) -> float:
+    return float(((a.cpu() - b.cpu()) / b.cpu().abs()).abs().max())
+
+
+def phase_relax(torch, fasta: str, tree_path: str, tmp: str) -> dict:
+    """RELAX at full width on the contrast alignment through ``warmup relax
+    --test FG --reference REF --models All``: seconds per stage, ms per
+    value and gradient of the general-descriptive (one group per branch)
+    and alternative objectives, launches, host syncs and propagator calls
+    per general-descriptive value, its idle share, K1 launches, peak
+    memory, the alternative on both forms of the fp32 Taylor route; the
+    general-descriptive site lnL card vs host and fp32 vs fp64, the batched
+    per-branch propagators against the per-group loop and against scipy;
+    the test, the Test = Reference^K distributions and the JSON."""
+    import numpy as np
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.methods import common, relax
+    from hyphy_tpu_torch.ops import expm
+
+    out_json = os.path.join(tmp, "contrast.RELAX.json")
+    argv = ["warmup", "relax", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--test", CONTRAST_LABELS[0], "--reference", CONTRAST_LABELS[1], "--models", "All"]
+    clock, res = _run_cli(torch, argv, [
+        (common, "load_codon_data", "load"),
+        (common, "fit_gtr", "gtr"),
+        (common, "fit_partitioned_mg94", "mg94"),
+        (relax, "fit_general_descriptive", "general_descriptive"),
+        (relax, "fit_alternative", "alternative"),
+        (relax, "fit_null", "null"),
+        (relax, "fit_partitioned_descriptive", "partitioned_descriptive"),
+        (cli, "write_json", "json"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    with open(out_json) as fh:
+        result = json.load(fh)
+    fits = result["fits"]
+    check(sorted(fits) == sorted(["Nucleotide GTR", "MG94xREV with separate rates for branch sets",
+                                  "General descriptive", "RELAX alternative", "RELAX null",
+                                  "RELAX partitioned descriptive"]), f"RELAX fits {sorted(fits)}")
+    tr = result["test results"]
+    res["test"] = {k: tr[k] for k in ("LRT", "p-value", "relaxation or intensification parameter")}
+    check(tr["LRT"] >= 0 and 0 <= tr["p-value"] <= 1, f"RELAX test {tr}")
+    k_mle = tr["relaxation or intensification parameter"]
+    dists = fits["RELAX alternative"]["Rate Distributions"]
+    res["power_rel"] = max(
+        max(abs(dists["Test"][i]["omega"] - dists["Reference"][i]["omega"] ** k_mle)
+            / max(abs(dists["Test"][i]["omega"]), 1e-300),
+            abs(dists["Test"][i]["proportion"] - dists["Reference"][i]["proportion"]))
+        for i in dists["Reference"])
+    check(res["power_rel"] <= RELAX_POWER_BOUND,
+          f"RELAX Test omegas are not Reference omegas ^ K at equal weights: {res['power_rel']}")
+
+    data = clock.last["load"][1]
+    ge_loglik, _, _, _ = clock.last["general_descriptive"][0]
+    ge_params = clock.last["general_descriptive"][1][0]
+    engine = ge_loglik.engine
+    alt_loglik = clock.last["null"][0][0]
+    alt_params = clock.last["null"][1][2]
+    k, n_branches = len(dists["Reference"]), data.tree.n_branches
+    check(engine.n_groups == n_branches,
+          f"the general-descriptive engine has {engine.n_groups} groups for {n_branches} branches")
+    res["families"] = n_branches * k
+    res["general_descriptive"] = _value_stats(torch, ge_loglik, ge_params, "relax_gd_value")
+    res["alternative"] = _value_stats(torch, alt_loglik, alt_params, "relax_alt_value")
+    res["alternative"]["routes"] = _route_ms(torch, alt_loglik.engine, alt_loglik, alt_params)
+    with torch.no_grad():
+        res["general_descriptive"]["host_syncs_per_value"] = _syncs(
+            torch, lambda: ge_loglik(ge_params))
+        res["general_descriptive"]["propagator_calls_per_value"] = _calls_in(
+            expm, ["taylor_propagators_batched", "ladder_depth", "shared_taylor_propagators"],
+            lambda: ge_loglik(ge_params))
+
+    ones = torch.ones(1, dtype=torch.float64, device=DEVICE)
+    n = min(SITE_PARITY_N, data.codon_filter.n_patterns)
+    card = _bsrel_copy(torch, engine, data, DEVICE, torch.float64, n)
+    host = _bsrel_copy(torch, engine, data, "cpu", torch.float64, n)
+    host_params = {key: v.detach().cpu() for key, v in ge_params.items()}
+    with torch.no_grad():
+        om, w = relax.general_descriptive_distribution(ge_params, k, n_branches)
+        hom, hw = relax.general_descriptive_distribution(host_params, k, n_branches)
+        res["site_fp64_card_vs_host_rel"] = _rel(
+            card.site_log_likelihoods(ge_params, om, w, ge_params["t"], ones, ones),
+            host.site_log_likelihoods(host_params, hom, hw, host_params["t"], ones.cpu(),
+                                      ones.cpu()))
+        del host
+        # the batched per-branch propagators against the per-group route's
+        # own calls (``expm.ladder_depth`` and ``shared_taylor_propagators``
+        # per family, as ``BSRELEngine._taylor_by_group`` makes them) on
+        # RELAX_LOOP_BRANCHES branches spread over the tree, fp32 and fp64
+        times = ge_params["t"][None]
+        sample = np.linspace(0, n_branches - 1, RELAX_LOOP_BRANCHES).astype(int)
+        loop = {}
+        for name, eng in (("float32", engine), ("float64", card)):
+            m = eng._family_generators(ge_params, om)
+            t = times.to(eng.dtype)
+            t0 = time.perf_counter()
+            batched = eng._taylor_per_branch(m, k, t)                    # [1, B, K, S, S]
+            torch.cuda.synchronize()
+            batched_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            worst = 0.0
+            for b in sample:
+                for c in range(k):
+                    f = int(b) * k + c
+                    depth = expm.ladder_depth(m[f], t[:, b:b + 1], 11, radius=2.0)
+                    p = expm.shared_taylor_propagators(m[f], t[:, b], depth)
+                    worst = max(worst, float((p - batched[:, b, c]).abs().max()))
+            loop[name] = {"max_abs": worst, "batched_s": batched_s, "families": int(m.shape[0]),
+                          "loop_s": time.perf_counter() - t0, "loop_families": len(sample) * k}
+            del batched, m
+        res["batched_vs_loop"] = loop
+        # fp64 per-branch propagators against scipy on three branches
+        m = card._family_generators(ge_params, om).reshape(n_branches, k, 61, 61)
+        p_cls = card._per_class_propagators(ge_params, om, times)[0]      # [B, K, S, S]
+        branches = np.linspace(0, n_branches - 1, RELAX_EXPM_BRANCHES).astype(int)
+        res["expm_max_abs"] = max(
+            float(np.abs(p_cls[b, c].cpu().numpy()
+                         - sla.expm(m[b, c].cpu().numpy() * float(ge_params["t"][b]))).max())
+            for b in branches for c in range(k))
+        # fp32 per-branch Taylor (the run's engine) against fp64 per-branch
+        # Taylor on every pattern (the fp64 spectral value, K6 on B*K
+        # families, is timed by --relax-check)
+        full64 = _bsrel_copy(torch, engine, data, DEVICE, torch.float64)
+        sll32 = engine.site_log_likelihoods(ge_params, om, w, ge_params["t"], ones, ones)
+        sll64 = full64.site_log_likelihoods(ge_params, om, w, ge_params["t"], ones, ones)
+        res["site_fp32_vs_fp64"] = float((sll32 - sll64).abs().max())
+        del full64, card
+    gd = res["general_descriptive"]
+    log(f"[relax] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{key} {v:.3f}" for key, v in res["stages_s"].items())
+        + f"; K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB")
+    _log_values("relax", f"general descriptive ({n_branches} groups, {res['families']} families)",
+                gd)
+    _log_values("relax", "alternative (3 groups)", res["alternative"])
+    log(f"[relax] per general-descriptive value: host syncs {gd['host_syncs_per_value']}, "
+        f"propagator calls {gd['propagator_calls_per_value']}; test {res['test']}; Test = "
+        f"Reference^K within {res['power_rel']:.3e} (bound {RELAX_POWER_BOUND})")
+    log(f"[relax] site lnL fp64 Taylor card vs host on {n} patterns, relative "
+        f"{res['site_fp64_card_vs_host_rel']:.3e} (bound {BUSTED_HOST_REL_BOUND}); fp32 vs fp64 "
+        f"Taylor per pattern {res['site_fp32_vs_fp64']:.3e} (bound {BUSTED_FP32_SITE_BOUND}); "
+        f"batched vs the per-group route's calls {loop} (bounds "
+        f"{RELAX_LOOP_BOUND}); fp64 vs scipy on {RELAX_EXPM_BRANCHES} branches "
+        f"{res['expm_max_abs']:.3e} (bound {RESAMPLE_EXPM_BOUND})")
+    calls = gd["propagator_calls_per_value"]
+    check(calls["taylor_propagators_batched"] == 1 and calls["ladder_depth"] == 0
+          and calls["shared_taylor_propagators"] == 0,
+          f"the general-descriptive value called the propagators {calls}")
+    check(res["site_fp64_card_vs_host_rel"] <= BUSTED_HOST_REL_BOUND,
+          "RELAX general-descriptive site lnL card vs host")
+    check(res["site_fp32_vs_fp64"] <= BUSTED_FP32_SITE_BOUND,
+          "RELAX fp32 general-descriptive site lnL far from fp64")
+    for name, d in loop.items():
+        check(d["max_abs"] <= RELAX_LOOP_BOUND[name],
+              f"RELAX {name} batched propagators differ from the per-group loop: {d}")
+    check(res["expm_max_abs"] <= RESAMPLE_EXPM_BOUND, "RELAX propagators against scipy")
+    check(res["level_products_launches"] > 0, "RELAX launched no level_products kernel")
+    return res
+
+
+def phase_relax_groups(torch, aln, tree_path: str, tmp: str) -> dict:
+    """RELAX group mode on the contrast alignment cut to RELAX_GROUP_CODONS
+    codons, ``warmup relax --groups FG,REF,Unlabeled --reference
+    Unlabeled``: seconds per stage, K1 launches, ms on both forms of the
+    fp32 Taylor route; df = 2, the two K, the group objective card vs host
+    (fp64 Taylor)."""
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.methods import common, relax
+
+    fasta = _cut_fasta(aln, os.path.join(tmp, "relax_groups.fasta"), RELAX_GROUP_CODONS)
+    out_json = os.path.join(tmp, "relax_groups.RELAX.json")
+    sets = CONTRAST_LABELS + ["Unlabeled"]
+    argv = ["warmup", "relax", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--groups", ",".join(sets), "--reference", "Unlabeled"]
+    clock, res = _run_cli(torch, argv, [
+        (common, "load_codon_data", "load"),
+        (common, "fit_gtr", "gtr"),
+        (common, "fit_partitioned_mg94", "mg94"),
+        (relax, "fit_alternative", "alternative"),
+        (relax, "fit_null", "null"),
+        (cli, "write_json", "json"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    with open(out_json) as fh:
+        tr = json.load(fh)["test results"]
+    res["test"] = tr
+    data = clock.last["load"][1]
+    loglik = clock.last["null"][0][0]
+    params = clock.last["null"][1][2]
+    n = min(SITE_PARITY_N, data.codon_filter.n_patterns)
+    card = _bsrel_copy(torch, loglik.engine, data, DEVICE, torch.float64, n)
+    host = _bsrel_copy(torch, loglik.engine, data, "cpu", torch.float64, n)
+    with torch.no_grad():
+        k = 3
+        on_card = relax.group_objective(card, k, len(sets), False)(params)
+        on_host = relax.group_objective(host, k, len(sets), False)(
+            {key: v.detach().cpu() for key, v in params.items()})
+    res["objective_fp64_card_vs_host_rel"] = _rel(on_card[None], on_host[None])
+    res["routes"] = _route_ms(torch, loglik.engine, loglik, params)
+    log(f"[relax-groups] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{key} {v:.3f}" for key, v in res["stages_s"].items())
+        + f"; K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; test "
+        f"{tr}; group objective fp64 Taylor card vs host on {n} patterns, relative "
+        f"{res['objective_fp64_card_vs_host_rel']:.3e} (bound {BUSTED_HOST_REL_BOUND})")
+    check(tr["degrees of freedom"] == 2, f"RELAX group mode df {tr['degrees of freedom']}")
+    check(sorted(tr["relaxation or intensification parameter"]) == sorted(CONTRAST_LABELS),
+          f"RELAX group mode K {tr['relaxation or intensification parameter']}")
+    check(tr["LRT"] >= 0 and 0 <= tr["p-value"] <= 1, f"RELAX group mode test {tr}")
+    check(res["objective_fp64_card_vs_host_rel"] <= BUSTED_HOST_REL_BOUND,
+          "RELAX group objective card vs host")
+    check(res["level_products_launches"] > 0, "RELAX group mode launched no level_products kernel")
+    return res
+
+
+def _absrel_alignment(tmp: str, n_taxa: int, n_codons: int):
+    """``simulated_codon_alignment(n_taxa, n_codons, seed=SEED)`` (omega 0.3
+    everywhere) as FASTA and newick files."""
+    from hyphy_tpu_torch.utils.synth import simulated_codon_alignment
+
+    aln, newick = simulated_codon_alignment(n_taxa, n_codons, seed=SEED)
+    fasta = os.path.join(tmp, f"absrel_{n_taxa}.fasta")
+    _write_fasta(fasta, aln.names, aln.sequences)
+    tree_path = os.path.join(tmp, f"absrel_{n_taxa}.nwk")
+    with open(tree_path, "w") as fh:
+        fh.write(newick)
+    return fasta, tree_path
+
+
+def _absrel_copy(torch, model, data, device, dtype, patterns=None, multiple_hits=None):
+    """An ABSRELModel over ``model``'s MG94 fit and the data's (first
+    ``patterns``) patterns on ``device`` in ``dtype`` on the Taylor route;
+    ``multiple_hits`` overrides the model's."""
+    import dataclasses
+
+    from hyphy_tpu_torch.methods.absrel import ABSRELModel
+    from hyphy_tpu_torch.models.codon import MG94Base
+
+    mg = model.mg94
+    mg94 = MG94Base(mg.gc, mg.corner_freqs, mg.frequencies.cpu().numpy(), device=device)
+    mh = multiple_hits or ("Double+Triple" if model.triple else "Double" if model.mh else "None")
+    saved = os.environ.get("HYPHY_TPU_PRECISION")
+    os.environ["HYPHY_TPU_PRECISION"] = str(dtype).split(".")[-1]
+    try:
+        out = ABSRELModel(mg94, dataclasses.replace(data, device=torch.device(device)), mh,
+                          model.srv, model.c_srv)
+    finally:
+        if saved is None:
+            del os.environ["HYPHY_TPU_PRECISION"]
+        else:
+            os.environ["HYPHY_TPU_PRECISION"] = saved
+    engine = out.engine
+    if patterns is not None:
+        engine.leaf_partials = engine.leaf_partials[:, :patterns].contiguous()
+        engine.pattern_weights = engine.pattern_weights[:patterns]
+    engine.spectral = False
+    return out
+
+
+def phase_absrel(torch, tmp: str) -> dict:
+    """aBSREL on ``simulated_codon_alignment(ABSREL_TAXA, N_CODONS)`` through
+    ``warmup absrel --srv Yes``: seconds per stage (baseline, step-up with
+    its fits and classes added, polish, nulls), ms per value and gradient,
+    K1 launches, peak memory; two branch nulls (and the full refit) on the
+    card under the warm-up cap; the objective card vs host at mixed class
+    counts (fp64 Taylor, also with Double+Triple bases), fp32 vs fp64, the
+    SRV posteriors and rates, Holm's correction."""
+    import numpy as np
+
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.methods import absrel, common
+
+    fasta, tree_path = _absrel_alignment(tmp, ABSREL_TAXA, N_CODONS)
+    out_json = os.path.join(tmp, "absrel.ABSREL.json")
+    argv = ["warmup", "absrel", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--srv", "Yes"]
+    clock, res = _run_cli(torch, argv, [
+        (common, "load_codon_data", "load"),
+        (common, "fit_gtr", "gtr"),
+        (common, "fit_partitioned_mg94", "mg94"),
+        (absrel.ABSRELModel, "fit", "fit"),
+        (absrel, "step_up", "step_up"),
+        (absrel, "test_branches", "nulls"),
+        (cli, "write_json", "json"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    data = clock.last["load"][1]
+    model, params, _, n_classes = clock.last["nulls"][0][:4]
+    params = clock.last["nulls"][1][0]
+    n_step_fits = clock.last["step_up"][1][3]
+    fits_s = clock.each["fit"]
+    res["stages_s"] = {"gtr": clock.seconds["gtr"], "mg94": clock.seconds["mg94"],
+                       "baseline": fits_s[0], "step_up": clock.seconds["step_up"],
+                       "polish": fits_s[1 + n_step_fits], "nulls": clock.seconds["nulls"],
+                       "json": clock.seconds["json"]}
+    res["step_up"] = {"fits": n_step_fits, "s_per_fit": clock.seconds["step_up"] / max(n_step_fits, 1),
+                      "classes_added": int(np.sum(n_classes) - len(n_classes))}
+    res["null_fits"] = len(clock.last["nulls"][1][2])
+    counts = model.classes(n_classes)
+
+    def loglik(p):
+        return model.loglik(p, counts)
+
+    res["values"] = _value_stats(torch, loglik, params, "absrel_value")
+    # the branch nulls on the card: the capped run may leave no branch's
+    # last omega above 1, so two branches' are set to 4 at the fitted point
+    # and their nulls fitted under the same cap (from an unfitted point, so
+    # the full refit from a null's MLE runs too)
+    from hyphy_tpu_torch.config import settings
+
+    chosen = [0, model.n_branches // 2]
+    point = dict(params)
+    point["omega_last"] = params["omega_last"].clone()
+    point["omega_last"][chosen] = 4.0
+    tested = np.zeros(model.n_branches, dtype=bool)
+    tested[chosen] = True
+    with torch.no_grad():
+        start_lnl = float(loglik(point))
+    settings.warmup = True
+    try:
+        t0 = time.perf_counter()
+        _, full_lnl, nulls = absrel.test_branches(model, point, start_lnl, n_classes, tested,
+                                                  data.tree.names, 1e-4)
+        torch.cuda.synchronize()
+    finally:
+        settings.warmup = False
+    res["branch_nulls"] = {"branches": len(chosen), "s": time.perf_counter() - t0,
+                           "start_lnl": start_lnl, "full_lnl": full_lnl, "null_lnl": nulls}
+    with open(out_json) as fh:
+        result = json.load(fh)
+    rates = np.asarray(result["Synonymous site-to-site rates"])
+    post = np.asarray(result["Synonymous site-posteriors"])
+    res["srv"] = {"weights_sum_dev": float(abs(rates[:, 1].sum() - 1.0)),
+                  "mean_rate_dev": float(abs(rates[:, 0] @ rates[:, 1] - 1.0)),
+                  "posterior_sum_dev": float(np.abs(post.sum(axis=0) - 1.0).max()),
+                  "posterior_shape": list(post.shape)}
+    attrs = result["branch attributes"]["0"]
+    tested = sorted((a["Uncorrected P-value"], a["Corrected P-value"]) for a in attrs.values()
+                    if "Uncorrected P-value" in a)
+    res["holm_monotone"] = all(b[1] >= a[1] - 1e-15 for a, b in zip(tested, tested[1:]))
+    res["tested"] = len(tested)
+
+    # the objective at mixed class counts 1-5, card vs host, fp64 Taylor;
+    # with the run's bases and with Double+Triple per-branch bases
+    mixed = np.arange(model.n_branches) % absrel.KMAX + 1
+    n = min(SITE_PARITY_N, data.codon_filter.n_patterns)
+    point = dict(params)
+    point["delta"] = torch.full((model.n_branches,), 0.1, dtype=torch.float64, device=DEVICE)
+    point["psi"] = torch.full((model.n_branches,), 0.05, dtype=torch.float64, device=DEVICE)
+    host_point = {key: v.detach().cpu() for key, v in point.items()}
+    res["objective_fp64_card_vs_host_rel"] = {}
+    with torch.no_grad():
+        for mh in ("None", "Double+Triple"):
+            card = _absrel_copy(torch, model, data, DEVICE, torch.float64, n, mh)
+            host = _absrel_copy(torch, model, data, "cpu", torch.float64, n, mh)
+            res["objective_fp64_card_vs_host_rel"][mh] = _rel(
+                card.loglik(point, card.classes(mixed))[None],
+                host.loglik(host_point, host.classes(mixed))[None])
+        del card, host
+        # fp32 (the run's engine, per-branch Taylor) against fp64 spectral on
+        # every pattern, at the mixed counts
+        full64 = _absrel_copy(torch, model, data, DEVICE, torch.float64)
+        full64.engine.spectral = True
+        om, w = absrel.branch_distributions(params, model.classes(mixed))
+        srv_rates, wsrv = model.srv_dist(params)
+        sll32 = model.engine.site_log_likelihoods(params, om, w, params["t"], srv_rates, wsrv)
+        sll64 = full64.engine.site_log_likelihoods(params, om, w, params["t"], srv_rates, wsrv)
+        res["site_fp32_vs_fp64"] = float((sll32 - sll64).abs().max())
+        del full64
+    log(f"[absrel] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{key} {v:.3f}" for key, v in res["stages_s"].items())
+        + f"; step-up {res['step_up']}; {res['null_fits']} branch nulls in the run, then "
+        f"{res['branch_nulls']}; K1 launches "
+        f"{res['level_products_launches']}; peak {res['peak_gb']:.2f} GB")
+    _log_values("absrel", f"the full model ({model.n_branches} branches x {absrel.KMAX} classes, "
+                          f"{model.c_srv} SRV classes)", res["values"])
+    log(f"[absrel] objective fp64 Taylor card vs host at mixed class counts on {n} patterns, "
+        f"relative {res['objective_fp64_card_vs_host_rel']} (bound {BUSTED_HOST_REL_BOUND}); fp32 "
+        f"vs fp64 spectral per pattern {res['site_fp32_vs_fp64']:.3e} (bound "
+        f"{BUSTED_FP32_SITE_BOUND}); SRV {res['srv']} (bound {POSTERIOR_SUM_BOUND}); Holm's "
+        f"correction monotone over {res['tested']} tested branches: {res['holm_monotone']}")
+    for mh, d in res["objective_fp64_card_vs_host_rel"].items():
+        check(d <= BUSTED_HOST_REL_BOUND, f"aBSREL objective ({mh}) card vs host: {d}")
+    check(res["site_fp32_vs_fp64"] <= BUSTED_FP32_SITE_BOUND, "aBSREL fp32 site lnL far from fp64")
+    check(all(res["srv"][key] <= POSTERIOR_SUM_BOUND
+              for key in ("weights_sum_dev", "mean_rate_dev", "posterior_sum_dev"))
+          and res["srv"]["posterior_shape"] == [3, N_CODONS], f"aBSREL SRV {res['srv']}")
+    check(res["holm_monotone"], "aBSREL Holm-corrected p not monotone in the uncorrected p")
+    check(len(nulls) == len(chosen) and all(full_lnl >= v - ALT_NULL_SLACK
+                                            for v in nulls.values()),
+          f"aBSREL branch nulls on the card: {res['branch_nulls']}")
+    check(res["level_products_launches"] > 0, "aBSREL launched no level_products kernel")
+    return res
+
+
+def _fit_recorder(module):
+    """Wraps ``module.maximize`` to record each fit's counters; returns
+    (the list they go to, a function that restores it)."""
+    fits, original = [], module.maximize
+
+    def recorded(*args, **kwargs):
+        fits.append({})
+        return original(*args, stats=fits[-1], **kwargs)
+
+    module.maximize = recorded
+
+    def restore():
+        module.maximize = original
+    return fits, restore
+
+
+def _fit_summary(fits) -> list:
+    return [(f["iterations"], f["restarts"], f["evaluations"], round(f["seconds"], 2), f["stop"])
+            for f in fits]
+
+
+def _spectral_general_descriptive(torch, r) -> dict:
+    """K6 at the general-descriptive model's B*K families: seconds per fp64
+    value of the general-descriptive objective on the spectral route (one
+    ``eigh`` per family, in chunks) at RELAX result ``r``'s alternative MLE
+    with every k_b = 1, and its relative distance from the per-branch Taylor
+    route's value."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import relax
+    from hyphy_tpu_torch.models.bsrel import BSRELEngine
+
+    loglik, _, params = r.models["alternative"]
+    eng, k = loglik.engine, 3
+    n_branches = int(eng.group_of_branch.shape[0])
+    ge = BSRELEngine(eng.model, eng.pdata, eng.leaf_partials.cpu().numpy(),
+                     eng.pattern_weights.cpu().numpy(), np.arange(n_branches))
+    point = {key: v for key, v in params.items() if key.startswith("theta")}
+    point.update({f"ge_omega_{i}": params[f"ref_omega_{i}"] for i in range(1, k + 1)})
+    point.update({f"ge_w_{i}": params[f"ref_w_{i}"] for i in range(1, k)})
+    point["t"] = params["t"]
+    point["k_branch"] = torch.ones(n_branches, dtype=torch.float64, device=DEVICE)
+    value = relax.general_descriptive_objective(ge, k)
+    out = {"families": n_branches * k, "spectral": ge.spectral}
+    with torch.no_grad():
+        spectral = float(value(point))                # the first call warms the solver
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value(point)
+        torch.cuda.synchronize()
+        out["value_s"] = time.perf_counter() - t0
+        ge.spectral = False
+        taylor = float(value(point))
+    out["spectral_vs_taylor_rel"] = abs(spectral - taylor) / abs(taylor)
+    log(f"[relax-check] fp64 general descriptive, {out['families']} families: spectral value "
+        f"{out['value_s']:.3f} s, spectral vs per-branch Taylor {out['spectral_vs_taylor_rel']:.3e} "
+        f"(bound {RELAX_SPECTRAL_REL_BOUND})")
+    return out
+
+
+def phase_relax_check(torch, tmp: str) -> dict:
+    """RELAX ``--models Minimal`` with every fit run to convergence, in fp32
+    and in fp64, on the contrast alignment cut to RELAX_CHECK_CODONS codons,
+    and aBSREL uncapped in fp32 on the episodic alignment along
+    ABSREL_CHECK_TAXA taxa (:func:`_episodic_alignment`,
+    ABSREL_CHECK_CODONS codons): seconds, lnLs and per-fit
+    counters; every lnL finite and below 0, the alternative no lower than
+    its null (the full aBSREL model no lower than any branch null), RELAX's
+    two precisions within FP32_BOUND lnL and calling alike at 0.05; the
+    fp64 general-descriptive value on the spectral route timed and held to
+    the Taylor route (:func:`_spectral_general_descriptive`).  Every input
+    runs; the phase fails after the last if one failed."""
+    from hyphy_tpu_torch.methods import absrel, relax
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    con_aln, _, con_tree = _contrast_alignment(tmp)
+    fasta = _cut_fasta(con_aln, os.path.join(tmp, "relax_check.fasta"), RELAX_CHECK_CODONS)
+    with open(con_tree) as fh:
+        newick = fh.read().strip()
+    res = {"codons": RELAX_CHECK_CODONS}
+    failed = []
+    level_products.launches = 0
+
+    def save():
+        with open(os.path.join("chiprun_out", "relax_check_partial.json"), "w") as fh:
+            json.dump(dict(res, failed=failed), fh, indent=1)
+
+    for name in ("float32", "float64"):
+        fits, restore = _fit_recorder(relax)
+        os.environ["HYPHY_TPU_PRECISION"] = name
+        try:
+            t0 = time.perf_counter()
+            r = relax.run(fasta, tree=newick, test=CONTRAST_LABELS[0],
+                          reference=CONTRAST_LABELS[1], models="Minimal", device=DEVICE)
+            torch.cuda.synchronize()
+            alt, null = r.fits["RELAX alternative"], r.fits["RELAX null"]
+            res[name] = {"seconds": time.perf_counter() - t0, "alternative_lnl": alt,
+                         "null_lnl": null, "K": r.k, "lrt": r.lrt, "p": r.p_value,
+                         "fits": fits}
+            log(f"[relax-check] RELAX {name}: {res[name]['seconds']:.2f} s; alternative "
+                f"{alt:.6f}, null {null:.6f}, K {r.k:.4f}, LRT {r.lrt:.4f}, p {r.p_value:.3e}; "
+                f"fits (iterations, restarts, evaluations, s, stop): {_fit_summary(fits)}")
+            check(all(math.isfinite(v) and v < 0 for v in (alt, null)),
+                  f"RELAX {name}: lnL alternative {alt}, null {null}")
+            check(alt >= null - ALT_NULL_SLACK, f"RELAX {name}: the alternative ends below its null")
+            if name == "float64":
+                res["spectral_general_descriptive"] = sgd = _spectral_general_descriptive(torch, r)
+                check(sgd["spectral_vs_taylor_rel"] <= RELAX_SPECTRAL_REL_BOUND,
+                      f"RELAX fp64 general descriptive: spectral vs Taylor {sgd}")
+        except RuntimeError as exc:
+            failed.append(f"RELAX {name}: {exc}")
+            log(f"[relax-check] RELAX {name} failed: {exc}")
+        finally:
+            restore()
+            del os.environ["HYPHY_TPU_PRECISION"]
+            torch.cuda.empty_cache()
+        save()
+    if "float32" in res and "float64" in res:
+        res["fp32_vs_fp64_lnl"] = abs(res["float32"]["alternative_lnl"]
+                                      - res["float64"]["alternative_lnl"])
+        if res["fp32_vs_fp64_lnl"] > FP32_BOUND:
+            failed.append(f"RELAX fp32 and fp64 alternatives {res['fp32_vs_fp64_lnl']} apart")
+        if (res["float32"]["p"] <= 0.05) != (res["float64"]["p"] <= 0.05):
+            failed.append("RELAX fp32 and fp64 call differently at 0.05")
+
+    abs_fasta, abs_newick = _episodic_alignment(tmp, ABSREL_CHECK_CODONS, ABSREL_CHECK_TAXA)
+    fits, restore = _fit_recorder(absrel)
+    nulls, original_tests = {}, absrel.test_branches
+
+    def tests(*args, **kwargs):
+        out = original_tests(*args, **kwargs)
+        nulls.update(out[2])
+        return out
+
+    absrel.test_branches = tests
+    os.environ["HYPHY_TPU_PRECISION"] = "float32"
+    try:
+        t0 = time.perf_counter()
+        r = absrel.run(abs_fasta, tree=abs_newick, device=DEVICE)
+        torch.cuda.synchronize()
+        res["absrel"] = {"taxa": ABSREL_CHECK_TAXA, "codons": ABSREL_CHECK_CODONS,
+                         "seconds": time.perf_counter() - t0, "baseline_lnl": r.baseline_lnl,
+                         "full_lnl": r.full_lnl, "classes": [int(c) for c in r.n_classes],
+                         "null_lnl": nulls, "positive": r.positive_branches,
+                         "fits": len(fits), "fit_stats": fits}
+        log(f"[relax-check] aBSREL float32 {ABSREL_CHECK_TAXA} x {ABSREL_CHECK_CODONS}: "
+            f"{res['absrel']['seconds']:.2f} s; baseline {r.baseline_lnl:.6f}, full "
+            f"{r.full_lnl:.6f}; classes added {sum(r.n_classes) - len(r.n_classes)}; {len(nulls)} "
+            f"branch nulls, {len(r.positive_branches)} positive; {len(fits)} fits, iterations "
+            f"{[f['iterations'] for f in fits]}")
+        check(all(math.isfinite(v) and v < 0 for v in (r.baseline_lnl, r.full_lnl)),
+              f"aBSREL lnL baseline {r.baseline_lnl}, full {r.full_lnl}")
+        check(all(r.full_lnl >= v - ALT_NULL_SLACK for v in nulls.values()),
+              "aBSREL: a branch null ends above the full model")
+    except RuntimeError as exc:
+        failed.append(f"aBSREL: {exc}")
+        log(f"[relax-check] aBSREL failed: {exc}")
+    finally:
+        restore()
+        absrel.test_branches = original_tests
+        del os.environ["HYPHY_TPU_PRECISION"]
+    res["level_products_launches"] = level_products.launches
+    save()
+    check(not failed, f"the RELAX check failed: {failed}")
+    check(res["level_products_launches"] > 0, "the RELAX check launched no kernel")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -2960,6 +3690,7 @@ def main(argv) -> int:
     full_fit = "--full-fit" in argv
     precision_check = "--precision-check" in argv
     busted_check = "--busted-check" in argv
+    relax_check = "--relax-check" in argv
     with tempfile.TemporaryDirectory() as tmp:
         if precision_check:
             record["precision"] = phase_precision(torch, tmp)
@@ -2967,14 +3698,18 @@ def main(argv) -> int:
         elif busted_check:
             record["busted_check"] = phase_busted_check(torch, tmp)
             main_phases = ("busted_check",)
+        elif relax_check:
+            record["relax_check"] = phase_relax_check(torch, tmp)
+            main_phases = ("relax_check",)
         else:
             main_phases = _default_phases(torch, record, tmp, full_fit)
+    checks = precision_check or busted_check or relax_check
 
     wide = next(r for r in record["kernels"]["shapes"]
                 if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")
     per_eval = next(r for r in record["kernels"]["evaluation"]
                     if r["states"] == 61 and r["dtype"] == "float32")
-    if not (precision_check or busted_check):
+    if not checks:
         # K1 inside a real fp32 evaluation (phase 5's profile) against phase
         # 3's per-level times on fresh random inputs, level by level
         in_eval = record["parity"]["float32"]["profile_value"]["k1_launch_ms"]
@@ -2996,7 +3731,7 @@ def main(argv) -> int:
         "eval_bound_ms": per_eval["bound_ms"],
         "launches_by_phase": by_phase,
     } for name in SOURCES]
-    if not (precision_check or busted_check):
+    if not checks:
         kernels[0]["eval_profiled_ms"] = sum(in_eval)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1)
@@ -3009,7 +3744,7 @@ def main(argv) -> int:
 
 
 def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
-    """Phases 4-20 into ``record``; returns the names of those that drive a
+    """Phases 4-23 into ``record``; returns the names of those that drive a
     method through its entry point (each reads K1's launch count around
     its run)."""
     def timed(name, fn, *args):
@@ -3050,10 +3785,12 @@ def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
     timed("busted", phase_busted, torch, sim_fasta, sim_tree, tmp)
     timed("busted_e", phase_busted_e, torch, sim_aln, sim_tree, tmp)
     timed("busted_ph", phase_busted_ph, torch, con_aln, con_tree, tmp)
+    timed("relax", phase_relax, torch, con_fasta, con_tree, tmp)
+    timed("relax_groups", phase_relax_groups, torch, con_aln, con_tree, tmp)
+    timed("absrel", phase_absrel, torch, tmp)
     return ("main_path", "partitions", "options", "slac", "simulate", "meme", "fubar",
             "bstill", "contrast_fel", "contrast_meme", "meme_resample", "prime", "busted",
-            "busted_e", "busted_ph")
-
+            "busted_e", "busted_ph", "relax", "relax_groups", "absrel")
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

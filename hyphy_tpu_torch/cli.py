@@ -2,10 +2,11 @@
 
 Counterpart of ``hyphy_tpu/cli.py`` for the ported methods (FEL, SLAC,
 MEME, FUBAR, B-STILL, contrast-FEL, contrast-MEME, PRIME, BUSTED,
-BUSTED-PH, ``simulate``, and the post-processors ``error-filter`` and
-``clade-support``), with the JAX parser's flags; it writes ``<alignment>.<METHOD>.json`` like the
-reference analyses do.  It runs on ``settings.device`` — the card,
-raising without one; there is no device flag, as the JAX CLI has none.
+BUSTED-PH, RELAX, aBSREL, ``simulate``, and the post-processors
+``error-filter`` and ``clade-support``), with the JAX parser's flags; it
+writes ``<alignment>.<METHOD>.json`` like the reference analyses do.  It
+runs on ``settings.device`` — the card, raising without one; there is no
+device flag, as the JAX CLI has none.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pw.add_argument("target", help="method to warm up (fel, slac, meme, fubar, b-still, "
                                    "contrast-fel, contrast-meme, simulate, prime, busted, "
-                                   "busted-ph)")
+                                   "busted-ph, relax, absrel)")
     pw.add_argument("rest", nargs=argparse.REMAINDER,
                     help="arguments passed through to the method")
 
@@ -179,6 +180,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", required=True, help="BUSTED-PH result JSON")
     p.add_argument("--output", default=None, help="output JSON path")
 
+    p = sub.add_parser("relax", help="Relaxation of selection test")
+    common_args(p)
+    p.add_argument("--test", default=None)
+    p.add_argument("--reference", default=None)
+    p.add_argument("--rates", type=int, default=3)
+    p.add_argument("--models", default="All", choices=["All", "Minimal"])
+    p.add_argument("--groups", default=None,
+                   help="comma-separated branch-set labels: group mode "
+                        "(>= 3 sets, per-group K); --reference names the "
+                        "reference set")
+
+    p = sub.add_parser("absrel", help="adaptive Branch-Site REL")
+    common_args(p)
+    p.add_argument("--branches", default="All")
+    p.add_argument("--pvalue", type=float, default=0.05)
+    p.add_argument("--multiple-hits", dest="multiple_hits", default="None",
+                   choices=["None", "Double", "Double+Triple"])
+    p.add_argument("--srv", default="No",
+                   help="include synonymous rate variation (shared GDD)")
+    p.add_argument("--syn-rates", dest="syn_rates", type=int, default=3)
+
     p = sub.add_parser("prime",
                        help="PRoperty Informed Model of Evolution (per-site property LRTs)")
     common_args(p)
@@ -292,6 +314,25 @@ def main(argv=None) -> int:
                                 srv_branchsite=args.srv_branchsite, **options)
         else:
             result = bustedph.run(args.alignment, args.code, tree, args.branches, **options)
+    elif args.method == "relax":
+        from hyphy_tpu_torch.methods import relax
+
+        if args.groups:
+            result = relax.run(args.alignment, args.code, tree, reference=args.reference,
+                               rate_classes=args.rates,
+                               groups=[g.strip() for g in args.groups.split(",")])
+        else:
+            if not args.test:
+                raise SystemExit("relax: --test is required (or use --groups)")
+            result = relax.run(args.alignment, args.code, tree, test=args.test,
+                               reference=args.reference, rate_classes=args.rates,
+                               models=args.models)
+    elif args.method == "absrel":
+        from hyphy_tpu_torch.methods import absrel
+
+        result = absrel.run(args.alignment, args.code, tree, args.branches, pvalue=args.pvalue,
+                            multiple_hits=args.multiple_hits, srv=_bool(args.srv),
+                            srv_classes=args.syn_rates)
     elif args.method == "prime":
         from hyphy_tpu_torch.methods import prime
 

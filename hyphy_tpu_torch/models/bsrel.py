@@ -14,7 +14,10 @@ unit-mean GDD class value, a site-level mixture on top.
 For G branch groups x K omega classes there are G*K generator families.
 fp64 builds every family's propagators from one eigendecomposition each;
 fp32 (the card's default) from shared-power Taylor series, because the
-fp32 ``eigh`` loses ~1e-2 on 61-state generators (PERF.md).  The C
+fp32 ``eigh`` loses ~1e-2 on 61-state generators (PERF.md): per group for
+few groups of many branch times (BUSTED), else every branch's K families at
+once by the batched per-generator series
+(:func:`expm.taylor_propagators_batched`; RELAX, aBSREL).  The C
 synonymous-rate classes are then pruned in ONE pass: their ``[C, B, S, S]``
 propagators go to the grid form of :func:`pruning.site_log_likelihoods`,
 which folds C into K1's node axis (one launch per level for all classes,
@@ -42,6 +45,17 @@ from hyphy_tpu_torch.ops.ancestral import branch_flux_vectors
 # bytes of one piece of branch_class_site_logliks' [branches, K, patterns, S]
 # class messages
 _FLUX_CHUNK_BYTES = 1 << 29
+# bytes of the four [families, S, S] tensors (input, its symmetric form,
+# eigenvectors, one factor) of one chunk of the spectral route's eigh
+_EIGH_CHUNK_BYTES = 1 << 28
+# the fp32 Taylor route's two forms: the per-group loop costs ~60 launches
+# and two host reads per family whatever its times, the batched per-branch
+# route device work per branch time.  The batched route takes a call whose
+# C x B times number at most this many per group: on an H100 at 1998
+# branches the loop's fp32 value took 29.3 ms against the batched 38.9 at
+# 5994 times per group (BUSTED: one group, three synonymous-rate classes),
+# and 33.1 against 18.6 at 666 (RELAX's alternative: three groups; PERF.md)
+BATCHED_TIMES_PER_GROUP = 2048
 
 
 def omega_distribution(params: Dict, prefix: str, k: int, error_sink: bool = False):
@@ -139,10 +153,15 @@ class BSRELEngine:
     def _spectral_factors(self, m, g, k):
         """Per-branch spectral factors of the families: left / right
         ``[B, K, S, S]``, eigenvalues ``[B, K, S]`` with the zero modes
-        settled (the JAX package keeps their round-off, ROADMAP 3.15)."""
-        left, lam, right = expm_ops.reversible_spectral(m, self.freqs)
-        lam = expm_ops.settle_zero_modes(lam)
+        settled (the JAX package keeps their round-off, ROADMAP 3.15).  The
+        eigendecompositions run in chunks of ``_EIGH_CHUNK_BYTES`` (G*K is
+        B*K at one group per branch: 5994 families at 1000 taxa, K = 3)."""
         s = m.shape[-1]
+        step = max(1, _EIGH_CHUNK_BYTES // (4 * s * s * m.element_size()))
+        parts = [expm_ops.reversible_spectral(m[lo: lo + step], self.freqs)
+                 for lo in range(0, m.shape[0], step)]
+        left, lam, right = (torch.cat(x) if len(parts) > 1 else x[0] for x in zip(*parts))
+        lam = expm_ops.settle_zero_modes(lam)
         gb = self.group_of_branch
         return (left.reshape(g, k, s, s)[gb], lam.reshape(g, k, s)[gb],
                 right.reshape(g, k, s, s)[gb])
@@ -169,6 +188,23 @@ class BSRELEngine:
             return parts[0]
         return torch.cat(parts, dim=1).index_select(1, self._unsort)
 
+    def _batched(self, times) -> bool:
+        """Whether the fp32 Taylor route takes the batched per-branch form
+        for srv-scaled ``times`` ``[C, B]`` (:data:`BATCHED_TIMES_PER_GROUP`;
+        always at one group per branch)."""
+        return not self.spectral and times.numel() <= BATCHED_TIMES_PER_GROUP * self.n_groups
+
+    def _taylor_per_branch(self, m, k, times):
+        """The per-branch Taylor route: ``[C, B, K, S, S]``, branch b's K
+        families (``group_of_branch[b] * K + kk``) at its own C times, all
+        B*K families in one :func:`expm.taylor_propagators_batched` call
+        (one host read for the ladder depth, no loop over groups)."""
+        s = m.shape[-1]
+        c, b = times.shape
+        fam = m.reshape(-1, k, s, s)[self.group_of_branch].reshape(b * k, s, s)
+        t = times.to(self.dtype)[:, :, None].expand(c, b, k).reshape(c, b * k)
+        return expm_ops.taylor_propagators_batched(fam, t).reshape(c, b, k, s, s)
+
     @staticmethod
     def _finish(p):
         return expm_ops.row_renormalize(expm_ops._clip_negative(p))
@@ -182,10 +218,16 @@ class BSRELEngine:
         same product.  fp32: each group's families at that group's branches
         by shared-power Taylor (the JAX package builds every family for
         every branch and selects by group, twice the memory at G = 2), then
-        the class-weighted mix."""
+        the class-weighted mix; with few times per group (:meth:`_batched`;
+        one group per branch among them), every branch's families in one
+        batched pass (the JAX package's selection would be ``[G*K, C*B, S,
+        S]``: 178 GB at RELAX's G = B = 1998)."""
         g, k = omegas.shape
         m = self._family_generators(params, omegas)             # [G*K, S, S]
         w = weights.to(self.dtype)
+        if self._batched(times):
+            p = self._taylor_per_branch(m, k, times)
+            return self._finish(torch.einsum("cbkij,bk->cbij", p, w[self.group_of_branch]))
         if not self.spectral:
             def mix(gi, per_class):
                 out = w[gi, 0] * per_class[0]
@@ -218,6 +260,10 @@ class BSRELEngine:
         t_scaled = srv_rates[:, None] * t_b[None, :]             # [C, B]
         w = weights.to(self.dtype)
         wsrv = srv_weights.to(self.dtype)
+        if self._batched(t_scaled):
+            p = self._taylor_per_branch(m, k, t_scaled)
+            return self._finish(torch.einsum("c,cbkij,bk->bij", wsrv, p,
+                                             w[self.group_of_branch]))
         if not self.spectral:
             def mix(gi, per_class):
                 out = None
@@ -266,7 +312,9 @@ class BSRELEngine:
         ``times`` — spectral in fp64, shared-power Taylor otherwise."""
         g, k = omegas.shape
         m = self._family_generators(params, omegas)
-        if not self.spectral:
+        if self._batched(times):
+            p = self._taylor_per_branch(m, k, times)
+        elif not self.spectral:
             p = self._taylor_by_group(m, k, times, lambda gi, per_class: torch.stack(per_class, 2))
         else:
             left, lam, right = self._spectral_factors(m, g, k)

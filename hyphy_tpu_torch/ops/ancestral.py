@@ -120,7 +120,7 @@ def joint_reconstruct(
     weighted = root_cond * root_freqs.to(dtype)[None, :]
     best, root_arg = torch.max(weighted, dim=-1)
     root_state = torch.where(torch.all(root_cond == 1.0, dim=-1), -1, root_arg)
-    tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=device)
+    tiny = torch.full((), torch.finfo(dtype).tiny, dtype=dtype, device=device)
     root_loglik = torch.log(torch.maximum(best, tiny)).to(torch.float64) + log_scale
 
     # traceback, top-down over the launches in reverse

@@ -300,7 +300,9 @@ def site_log_likelihoods(
     else:
         root_like = root @ root_freqs.to(dtype)            # [G, patterns]
     if (not grid) if floor is None else floor:
-        tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=device)
+        # a fill on the device (torch.tensor of a host scalar is a copy that
+        # makes the host wait for the card)
+        tiny = torch.full((), torch.finfo(dtype).tiny, dtype=dtype, device=device)
         root_like = torch.maximum(root_like, tiny)
     out = torch.log(root_like.to(torch.float64)) + log_scale
     return out if grid else out[0]
@@ -413,7 +415,7 @@ def _root_log_likelihood(buf, n_nodes, root_freqs, log_scale):
     # not a matrix-vector product: the BLAS's fp32 kernel for that depends
     # on the number of sites (see :func:`_halving_sum`)
     root_like = _halving_sum(buf[:, n_nodes - 1] * root_freqs.to(dtype))
-    tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=buf.device)
+    tiny = torch.full((), torch.finfo(dtype).tiny, dtype=dtype, device=buf.device)
     return torch.log(torch.maximum(root_like, tiny)) + log_scale
 
 

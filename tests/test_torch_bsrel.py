@@ -26,6 +26,7 @@ from hyphy_tpu.utils.synth import random_tree_newick, synthetic_codon_alignment
 from hyphy_tpu_torch.data.alignment import read_alignment
 from hyphy_tpu_torch.data.filter import DataFilter
 from hyphy_tpu_torch.data.genetic_code import GeneticCode
+from hyphy_tpu_torch.models import bsrel
 from hyphy_tpu_torch.models.bsrel import BSRELEngine, omega_distribution, srv_distribution
 from hyphy_tpu_torch.models.codon import MG94Base
 from hyphy_tpu_torch.models.parameters import stick_breaking_weights
@@ -118,7 +119,7 @@ def _call(engine, method, point, lib):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_site_log_likelihoods_match_jax(fixture, case):
+def test_site_log_likelihoods_match_jax(fixture, case, monkeypatch):
     c, omegas, _, mh = CASES[case]
     jengine, engine = _engines(fixture, len(omegas), c, mh)
     point = _point(fixture, case)
@@ -127,15 +128,18 @@ def test_site_log_likelihoods_match_jax(fixture, case):
         ours = _call(engine, method, point, "torch")
         assert ours.shape == ref.shape
         np.testing.assert_allclose(ours, ref, rtol=1e-9, atol=0)
-    # fp64 Taylor propagators against the spectral ones
+    # fp64 Taylor propagators against the spectral ones, in both forms of
+    # the Taylor route (batched per branch at this size; the per-group loop)
     spectral = _call(engine, "site_log_likelihoods", point, "torch")
     engine.spectral = False
-    np.testing.assert_allclose(_call(engine, "site_log_likelihoods", point, "torch"), spectral,
-                               rtol=1e-9, atol=0)
+    for per_group_times in (bsrel.BATCHED_TIMES_PER_GROUP, 0):
+        monkeypatch.setattr(bsrel, "BATCHED_TIMES_PER_GROUP", per_group_times)
+        np.testing.assert_allclose(_call(engine, "site_log_likelihoods", point, "torch"),
+                                   spectral, rtol=1e-9, atol=0)
 
 
 @pytest.mark.parametrize("srv_classes", [1, 3])
-def test_branchsite_srv_matches_jax(fixture, srv_classes):
+def test_branchsite_srv_matches_jax(fixture, srv_classes, monkeypatch):
     jengine, engine = _engines(fixture, 1, srv_classes, False)
     point = _point(fixture, "srv3-multihit" if srv_classes == 3 else "nosrv-k2")
     point["rates"], point["wsrv"] = point["rates"][:srv_classes], point["wsrv"][:srv_classes]
@@ -144,7 +148,9 @@ def test_branchsite_srv_matches_jax(fixture, srv_classes):
     ref = _call(jengine, method, point, "jax")
     np.testing.assert_allclose(_call(engine, method, point, "torch"), ref, rtol=1e-9, atol=0)
     engine.spectral = False
-    np.testing.assert_allclose(_call(engine, method, point, "torch"), ref, rtol=1e-9, atol=0)
+    for per_group_times in (bsrel.BATCHED_TIMES_PER_GROUP, 0):
+        monkeypatch.setattr(bsrel, "BATCHED_TIMES_PER_GROUP", per_group_times)
+        np.testing.assert_allclose(_call(engine, method, point, "torch"), ref, rtol=1e-9, atol=0)
 
 
 def test_distributions_match_jax():

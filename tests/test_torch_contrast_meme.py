@@ -1,7 +1,7 @@
 """The port's contrast-MEME against the JAX package's, with the JAX run's
 GTR and MG94 fits carried across, on two testable branch sets plus
-background with three permutations per screened site (``pvalue`` 1.0
-screens in every non-constant site, 5 of the tiny fixture's 6: fifteen
+background with two permutations per screened site (``pvalue`` 1.0
+screens in every non-constant site, 5 of the tiny fixture's 6: ten
 permutation jobs); the site objective
 at fixed points, with the data's and with permuted branch-to-set maps,
 against the JAX package's spectral mixture; and the per-item
@@ -26,7 +26,7 @@ from test_torch_contrast_fel import carried_single_mg94, run_both, write_contras
 
 torch.set_num_threads(2)
 
-N_TAXA, N_CODONS, PERMUTATIONS = 6, 6, 3
+N_TAXA, N_CODONS, PERMUTATIONS = 6, 6, 2
 
 
 @pytest.fixture(scope="module")

@@ -26,8 +26,9 @@ print("LOADED", sorted(m for m in sys.modules if m.startswith("hyphy_tpu_torch."
 """
 
 # modules added with FEL's options and CHARSET partitions, with SLAC, MEME
-# and simulate, with FUBAR, B-STILL and the contrast methods, and with
-# PRIME and the BUSTED family, which the walk above must reach
+# and simulate, with FUBAR, B-STILL and the contrast methods, with PRIME and
+# the BUSTED family, and with RELAX and aBSREL, which the walk above must
+# reach
 _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batched",
                 "hyphy_tpu_torch.methods.fel", "hyphy_tpu_torch.io.json_out",
                 "hyphy_tpu_torch.ops.ancestral", "hyphy_tpu_torch.methods.counting",
@@ -39,7 +40,8 @@ _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batc
                 "hyphy_tpu_torch.methods.busted", "hyphy_tpu_torch.methods.bustedph",
                 "hyphy_tpu_torch.methods.error_filter", "hyphy_tpu_torch.methods.clade_support",
                 "hyphy_tpu_torch.models.bsrel", "hyphy_tpu_torch.ops.hmm",
-                "hyphy_tpu_torch.io.serialize"]
+                "hyphy_tpu_torch.io.serialize", "hyphy_tpu_torch.methods.relax",
+                "hyphy_tpu_torch.methods.absrel"]
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -205,6 +207,44 @@ def test_prime_and_busted_entry_points_raise_without_cuda(monkeypatch, tmp_path,
     out = tmp_path / "a.json"
     argv = [method, "--alignment", str(fasta), "--tree", newick, "--output", str(out)]
     argv += ["--branches", "FG"] if method == "busted-ph" else []
+    for prefix in ([], ["warmup"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(prefix + argv)
+        assert not out.exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.run(str(fasta), tree=newick)
+    monkeypatch.setattr(settings, "device", "cpu")
+    assert cli.main(["warmup"] + argv) == 0
+    assert "fits" in json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("method, flags", [
+    ("relax", ["--test", "FG", "--models", "Minimal"]),
+    ("relax", ["--groups", "FG,REF,Unlabeled", "--reference", "Unlabeled"]),
+    ("absrel", ["--srv", "Yes"]),
+], ids=["relax", "relax-groups", "absrel"])
+def test_relax_and_absrel_entry_points_raise_without_cuda(monkeypatch, tmp_path, method, flags):
+    """RELAX (classic and group mode) and aBSREL through the CLI, plain and
+    under ``warmup``, and as functions: they raise without CUDA, and run on
+    the CPU only when asked (the capped ``warmup`` run, on a labelled
+    5-taxon tree)."""
+    import importlib
+    import json
+
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.utils.synth import synthetic_codon_alignment
+
+    module = importlib.import_module(f"hyphy_tpu_torch.methods.{method}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(settings, "device", "cuda")
+    monkeypatch.setenv("HYPHY_TPU_PROGRESS", "0")
+    aln = synthetic_codon_alignment(5, 4, seed=2)
+    fasta = tmp_path / "a.fasta"
+    fasta.write_text("".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
+    newick = "((t0{FG}:0.1,t1{FG}:0.2){FG}:0.05,(t2{REF}:0.1,t3:0.15):0.1,t4:0.2)"
+    out = tmp_path / "a.json"
+    argv = [method, "--alignment", str(fasta), "--tree", newick, "--output", str(out)] + flags
     for prefix in ([], ["warmup"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(prefix + argv)

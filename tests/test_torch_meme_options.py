@@ -1,7 +1,7 @@
 """The port's MEME against the JAX package's with the options a K = 2 run
 leaves out: three rate classes, background branches (four of the six
 leaves tested) and ``--multiple-hits Double`` with per-site 2H rates; and
-``--resample 3``, the parametric bootstrap: its draws against the JAX
+``--resample 2``, the parametric bootstrap: its draws against the JAX
 package's (propagators against ``scipy``, states from the JAX package's
 ``simulate_states`` in its order) and its p-values against the JAX run's.
 The JAX runs' GTR and MG94 fits are carried across.  The fixture and the
@@ -20,7 +20,7 @@ from test_torch_meme import PLANTED, assert_tables_match, run_both, write_fixtur
 
 torch.set_num_threads(2)
 
-RESAMPLE, RESAMPLE_CODONS = 3, 6
+RESAMPLE, RESAMPLE_CODONS = 2, 6
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +32,7 @@ def k3_runs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def resample_runs(tmp_path_factory):
-    """K = 2 with ``resample`` 3 on a 6-codon alignment simulated along a
+    """K = 2 with ``resample`` 2 on a 6-codon alignment simulated along a
     6-taxon tree, omega = 8 at codon 2."""
     omegas = np.full(RESAMPLE_CODONS, 0.3)
     omegas[2] = 8.0
@@ -138,7 +138,7 @@ def test_resample_pvalues_match(resample_runs):
 
 
 def test_resample_pvalues_lie_on_the_bootstrap_grid(resample_runs):
-    """p in {1/4, 2/4, 3/4, 1}; 1 wherever the positive-evidence condition
+    """p in {1/3, 2/3, 1}; 1 wherever the positive-evidence condition
     fails (LRT 0), as the asymptotic p-value is there."""
     ours, _ = resample_runs
     names = [h[0] for h in ours.headers]
