@@ -13,9 +13,10 @@ checkout's sources.  Phases, each of which fails the run if it fails:
   1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
   2. the build of every kernel source (one ``nvcc`` each, all at once);
   3. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at alignment and edge shapes, in fp32 and fp64,
-     with times; then K1 summed over the 23 real level widths of the main
-     path's tree, for the codon and the nucleotide pattern counts;
+     main path's shapes (the protein evaluation's widest level, 20 states,
+     among them) and at alignment and edge shapes, in fp32 and fp64, with
+     times; then K1 summed over the 23 real level widths of the main path's
+     tree, for the codon, the nucleotide and the protein pattern counts;
   4. the main path at full width — FEL on 1000 taxa x 2048 codons as a
      user runs it, ``python -m hyphy_tpu_torch warmup fel`` (L-BFGS capped
      at 3 iterations, Nelder-Mead at 32; ``fel`` uncapped with
@@ -43,9 +44,10 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      with seconds per stage, K1 launches per partition, peak memory and ms
      per batched site evaluation; the JSON checked; then the per-site
      objective with per-site delta/psi, card against host in fp64 Taylor;
-  8. ``warmup fel --ci Yes --resample 10`` on 1000 taxa x 128 codons
-     (codons cut so that the profile's ~60 batched fits and the bootstrap's
-     host sampling fit the run; capped under ``--full-fit`` too), with the
+  8. ``warmup fel --ci Yes --resample 10`` on 128 taxa x 128 codons
+     (``random_tree_newick(128, SEED)``: the CI's evaluations are a fixed
+     number of steps whose launches follow the tree's levels, so the run is
+     cut in taxa; capped under ``--full-fit`` too), with the
      fused Nelder-Mead probes (``HYPHY_TPU_NM_FUSED=1``: at 128 sites an
      evaluation is host launch time): seconds of the CI and of the
      bootstrap apart, LB <= MLE <= UB, bootstrap p in multiples of 1/11;
@@ -61,7 +63,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      the JSON (headers, finite tables, 2.5% <= median <= 97.5%);
  10. ``warmup simulate --replicates 2`` on phase 9's alignment: the
      replicates have its taxa and codons;
- 11. MEME on phase 9's alignment cut to 128 codons (the EBF's items grow
+ 11. MEME on phase 9's alignment cut to 64 codons (the EBF's items grow
      with codons x tested branches), through ``warmup meme``: seconds per
      stage (FEL, candidates, alternative, null, EBF), the EBF's items and
      chunks, K1 launches, one batched mixture evaluation timed and
@@ -78,12 +80,13 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      summing to 1, 7 of 9 planted codons at P[beta > alpha] >= 0.9;
  13. B-STILL on phase 9's alignment cut to 256 codons, ``warmup b-still
      --grid 20``: seconds, K1 launches, the JSON, finite EBFs;
- 14. contrast-FEL at full width (G = 3) on a second alignment: two
-     disjoint ~250-leaf clades of the same tree labelled FG and REF, omega
-     = 5 on FG only at the nine planted codons, ``warmup contrast-fel
-     --branch-set FG --branch-set REF``: seconds per stage, ms per batched
-     site evaluation, one profiled, peak memory, K1 launches; 7 of 9
-     planted codons at p <= 0.1, the per-site lnL card vs host (fp64
+ 14. contrast-FEL (G = 3) at 1000 taxa on a second alignment cut to 512
+     codons: two disjoint ~250-leaf clades of the same tree labelled FG and
+     REF, omega = 5 on FG only at the nine planted codons, ``warmup
+     contrast-fel --branch-set FG --branch-set REF``: seconds per stage, ms
+     per batched site evaluation, one profiled, peak memory, K1 launches;
+     all but two of the seven planted codons below 512 at p <= 0.1, the
+     per-site lnL card vs host (fp64
      Taylor, 64 sites) and fp32 vs fp64, the substitution counts card vs
      host (equal);
  15. contrast-MEME on that alignment cut to 256 codons, ``warmup
@@ -96,7 +99,8 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      multiples of 1/4, the card's fp64 family propagators of two sites
      against ``scipy.linalg.expm`` on three branches (1e-10).
 
- 17. PRIME at full width on phase 9's alignment, ``warmup prime``: seconds
+ 17. PRIME at 1000 taxa on phase 9's alignment cut to 512 codons,
+     ``warmup prime``: seconds
      per stage (load, GTR, MG94, grid, the full fit, the five nulls,
      JSON), ms per batched site evaluation, K1 launches, peak memory; the
      per-site objective card vs host (fp64 Taylor, 64 sites, 1e-9, one
@@ -144,7 +148,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      stage, K1 launches, ms on both forms of the fp32 Taylor route; df = 2,
      the two K, the group objective card vs host (fp64 Taylor, 64 patterns,
      1e-9 relative);
- 23. aBSREL on ``simulated_codon_alignment(64, 2048, seed=11)``, ``warmup
+ 23. aBSREL on ``simulated_codon_alignment(64, 1024, seed=11)``, ``warmup
      absrel --srv Yes``: seconds per stage (baseline, step-up with its fits
      and classes added, polish, branch nulls), ms per value and
      value+gradient, K1 launches, peak memory; two branches' nulls, with
@@ -153,9 +157,38 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      at mixed class counts 1-5 (fp64 Taylor, 1e-9 relative; also with
      Double+Triple per-branch bases), fp32 vs fp64 (0.03 per pattern), the
      SRV posteriors summing to 1 and rates of unit mean (1e-6), Holm-corrected
-     p non-decreasing in the uncorrected p.
+     p non-decreasing in the uncorrected p;
+ 24. LEISR at full width: a protein alignment of 1000 taxa x 2048 residues
+     simulated under WAG along phase 4's tree (with phase 25's planted
+     block), ``warmup leisr --type protein --model LG``, and phase 4's
+     alignment read as 6144 nucleotides, ``warmup leisr --type nucleotide
+     --model GTR``: seconds per stage (load, baseline fit, site fits, CI),
+     Nelder-Mead iterations, ms per batched site evaluation, K1 launches,
+     peak memory; the site lnL at r = 1 and three other rates card vs host
+     (fp64, 1e-9 relative), fp32 Taylor vs fp64 per pattern (0.03), LB <=
+     MLE <= UB, LogL local >= LogL global - 1e-3, r = 0 at constant sites,
+     the CI of 64 sites fp32 vs fp64 (1e-3 relative, or both at the cap);
+ 25. FADE on the protein alignment's first 512 residues along the contrast
+     tree, where its seven planted residues evolve on the FG clade under
+     FADE's biased WAG generator toward K (rate 1, bias 10), ``warmup fade
+     --model WAG --branches FG`` (400 grid points, 20 residues,
+     Variational-Bayes): seconds per target (grid pass, posterior), grid
+     chunk, K1 launches, peak memory; six grid points toward K card vs host
+     (fp64, 1e-9 relative at finite entries, -inf at the same entries) and
+     fp32 vs fp64 (0.03), the biased propagators at bias 50 against
+     ``scipy.linalg.expm`` (fp64 1e-10, the fp32 pruning's input 1e-5),
+     Prob[bias>0] in [0, 1], the planted residues' mean Prob[bias>0] toward
+     K above the rest's;
+ 26. FitMultiModel at full width on phase 4's alignment, ``warmup fmm``:
+     seconds per fit (GTR, MG94, 1H, each coarse and polish fit of 2H and
+     3H), ms per GDD value and value+gradient with K1 launches per value
+     (the 3 classes folded into K1's node axis), peak memory; the GDD site
+     lnL at the fitted 3H point card vs host on 64 codons (fp64 Taylor 1e-9
+     relative, spectral 1e-6), fp32 vs fp64 per pattern (0.03), class
+     weights summing to 1 (1e-6), every lnL, LRT and evidence ratio finite,
+     the JSON's keys.
 
-``--precision-check`` runs phases 1-3 and then, in place of phases 4-23,
+``--precision-check`` runs phases 1-3 and then, in place of phases 4-26,
 FEL's per-site stage on phase 8's input at one capped global fit, run to
 convergence in fp32 and in fp64: the same p <= 0.1 set, and alpha and beta
 within the stated tolerance at all but 5% of the sites.  ``--busted-check``
@@ -180,7 +213,7 @@ aBSREL uncapped in fp32 on the episodic control along 32 taxa, 512 codons
 reported.
 
 K1's ``launches`` on the kernels line sum the phases that drive a method
-(4, 7-23, or the precision, BUSTED or RELAX check), each counted from 0
+(4, 7-26, or the precision, BUSTED or RELAX check), each counted from 0
 around its run.  It
 imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
@@ -224,9 +257,11 @@ DEVICE = "cuda"
 # (5,2,700,61): the JAX package's kernel test; (500,2,2048,61): wider than
 # the bench tree's widest level (320 nodes), the row the kernels line
 # reports; (3,3,1000,61): K=3 with a ragged last pattern tile;
-# (320,2,6144,4): the GTR fit's widest level (6144 nucleotide patterns)
+# (320,2,6144,4): the GTR fit's widest level (6144 nucleotide patterns);
+# (320,2,2048,20): the protein evaluation's widest level (LEISR's 2048
+# residues; 20 of K1's 32 state rows filled in fp32 and fp64 alike)
 KERNEL_SHAPES = [(5, 2, 700, 61), (500, 2, 2048, 61), (3, 3, 1000, 61),
-                 (320, 2, 6144, 4)]
+                 (320, 2, 6144, 4), (320, 2, 2048, 20)]
 # shapes the kernel's tiling is exposed to: odd P (misaligned tile starts),
 # K=3 ragged, the amino-acid width (8 state groups), full lanes on one node,
 # a polytomy at S=4
@@ -236,8 +271,9 @@ EDGE_SHAPES = [(7, 2, 2047, 61), (4, 3, 1001, 61), (2, 2, 333, 20),
 # one evaluation launches K1 once per level (phase 5 checks the count)
 LEVEL_WIDTHS = [320, 200, 133, 90, 61, 49, 36, 27, 18, 13, 12, 8, 6, 5, 4, 3,
                 3, 3, 3, 2, 1, 1, 1]
-# (patterns, states) of the codon (MG94) and nucleotide (GTR) evaluations
-LEVEL_PATTERNS = [(N_CODONS, 61), (3 * N_CODONS, 4)]
+# (patterns, states) of the codon (MG94), nucleotide (GTR) and protein
+# (LEISR's baseline) evaluations
+LEVEL_PATTERNS = [(N_CODONS, 61), (3 * N_CODONS, 4), (N_CODONS, 20)]
 REL_BOUND = {"float32": 1e-5, "float64": 1e-12}
 # phase 6: rows of FEL's SRV start grid, (alpha, beta) = (0.01, 0.1),
 # (1, 1), (10, 50); sites held card against host; bounds on the per-site lnL
@@ -260,8 +296,11 @@ SITE_PROFILE_N = 256
 # (alpha, beta, delta, psi) points of the card-vs-host multi-hit check
 N_PARTS, PART_CODONS = 4, 512
 MH_SITE_POINTS = [(1.0, 1.0, 0.05, 0.05), (0.01, 0.1, 1.0, 1.0), (10.0, 50.0, 10.0, 5.0)]
-# phase 8: codons of the CI / bootstrap run, and bootstrap replicates
-CI_CODONS, N_RESAMPLE = 128, 10
+# phase 8: taxa and codons of the CI / bootstrap run, and bootstrap
+# replicates: the CI's evaluations are a fixed number of bisection and
+# Nelder-Mead steps whose launches follow the tree's levels, so the run is
+# cut in taxa (random_tree_newick(CI_TAXA, SEED)) for the 900 s budget
+CI_TAXA, CI_CODONS, N_RESAMPLE = 128, 128, 10
 # the fused Nelder-Mead probes: sites, and iterations timed
 FUSED_SITES, FUSED_ITERATIONS = [128, 512], 6
 # phases 9-11: an alignment simulated along random_tree_newick(N_TAXA, SEED)
@@ -271,8 +310,9 @@ PLANTED_SITES, PLANTED_OMEGA = [37, 101, 190, 263, 333, 402, 475, 1100, 1700], 5
 SLAC_SAMPLES, SLAC_HOST_PATTERNS, SLAC_LNL_REL_BOUND = 10, 512, 1e-9
 # phase 11: MEME's codons (the EBF's items grow with codons x tested
 # branches: ~1.02 M at 512; cut to 128 for phases 21-23's room in the
-# chip budget); sites and forced items per chunk of the split
-MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 128, 64, 997
+# chip budget, to 64 for phases 24-26's); sites and forced items per chunk
+# of the split
+MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 64, 64, 997
 # phase 12: FUBAR's grid (points per axis); grid points held fp32 vs fp64
 # (alpha > 0 and beta > 0: where alpha or beta is 0 the fp64 spectral route
 # gives round-off for unreachable codons, ROADMAP 3.5) and folded vs one by
@@ -287,6 +327,9 @@ FORCED_PATTERNS = 64   # B-STILL's pass 2 again with the chunk forced past K1's 
 # random_tree_newick(N_TAXA, SEED) labelled FG and REF (the rest background,
 # G = 3), omega = PLANTED_OMEGA on the FG branches only at PLANTED_SITES
 CONTRAST_CLADES, CONTRAST_LABELS = [250, 250], ["FG", "REF"]
+# phase 14: contrast-FEL's codons (cut for the chip budget; the per-site
+# route with G = 3 stays at 1000 taxa)
+CFEL_CODONS = 512
 # phase 15: contrast-MEME's codons and permutations
 CMEME_CODONS, CMEME_PERMUTATIONS = 256, 3
 # phase 16: MEME --resample's codons and replicates; sites and branches of
@@ -294,9 +337,11 @@ CMEME_CODONS, CMEME_PERMUTATIONS = 256, 3
 RESAMPLE_CODONS, MEME_RESAMPLE = 64, 3
 RESAMPLE_CHECK_SITES, RESAMPLE_CHECK_BRANCHES = 2, 3
 RESAMPLE_EXPM_BOUND = 1e-10
-# phase 17: PRIME's per-site objective card vs host (fp64 Taylor) at these
+# phase 17: PRIME's codons (cut for the chip budget); its per-site
+# objective card vs host (fp64 Taylor) at these
 # (alpha, beta, lambda_0, other lambdas) points, one with |lambda| = 10
 PRIME_POINTS = [(1.0, 0.5, 0.1, 0.1), (0.3, 2.0, -1.0, 0.5), (1.0, 1.0, -10.0, 0.1)]
+PRIME_CODONS = 512
 # phase 18: BUSTED's mixture site lnL card vs host (fp64 Taylor, relative),
 # fp32 Taylor vs fp64 spectral per pattern and on the whole lnL
 BUSTED_HOST_REL_BOUND, BUSTED_FP32_SITE_BOUND, BUSTED_FP32_TOTAL_BOUND = 1e-9, 0.03, 10.0
@@ -323,9 +368,10 @@ RELAX_LOOP_BOUND = {"float32": 1e-6, "float64": 1e-12}
 RELAX_POWER_BOUND = 1e-6
 # phase 22: RELAX group mode's codons
 RELAX_GROUP_CODONS = 512
-# phase 23: aBSREL's taxa: the step-up fits every branch at least once, one
-# capped fit each, so 1000 taxa (1998 branches) would not fit the run
-ABSREL_TAXA = 64
+# phase 23: aBSREL's taxa and codons: the step-up fits every branch at
+# least once, one capped fit each, so 1000 taxa (1998 branches) would not
+# fit the run; codons cut to 1024 for the 900 s budget
+ABSREL_TAXA, ABSREL_CODONS = 64, 1024
 # --relax-check: RELAX --models Minimal uncapped on the contrast alignment
 # cut to RELAX_CHECK_CODONS codons in fp32 and fp64; aBSREL uncapped in fp32
 # on the episodic alignment (below) along ABSREL_CHECK_TAXA taxa, of
@@ -334,6 +380,31 @@ RELAX_CHECK_CODONS, ABSREL_CHECK_TAXA, ABSREL_CHECK_CODONS = 512, 32, 512
 # --relax-check: the fp64 general-descriptive value (one group per branch)
 # on the spectral route against the per-branch Taylor route (relative)
 RELAX_SPECTRAL_REL_BOUND = 1e-9
+# phases 24-25: a protein alignment of N_TAXA x N_CODONS residues simulated
+# under WAG along random_tree_newick(N_TAXA, SEED), with FADE's biased
+# generator (toward FADE_TARGET at FADE_RATE, FADE_BIAS) on the contrast
+# tree's FG clade at the planted positions below FADE_SITES, FADE's input
+FADE_SITES, FADE_TARGET, FADE_RATE, FADE_BIAS = 512, "K", 1.0, 10.0
+# phase 24: LEISR's site lnL card vs host (fp64 spectral, relative) at these
+# rates; the profile CI of LEISR_CI_SITES variable patterns, fp32 against
+# fp64 (relative, or both at the same cap)
+LEISR_RATES, LEISR_HOST_REL_BOUND = [1.0, 0.1, 3.0, 1e-3], 1e-9
+LEISR_CI_SITES, LEISR_CI_REL_BOUND = 64, 1e-3
+LEISR_LOCAL_SLACK = 1e-3    # LogL local >= LogL global - this (fp32)
+# phase 25: grid points held card vs host (fp64, relative at finite entries)
+# and fp32 vs fp64 (per pattern): rate 0; rate 1/15 at bias 0 and 50; rate 1
+# at bias 1 and 50; rate 50 at bias 50; the biased propagators at bias 50
+# against scipy (fp64, and the fp32 pruning's input) on FADE_EXPM_BRANCHES
+FADE_HOST_POINTS, FADE_HOST_REL_BOUND = [0, 1, 19, 273, 279, 399], 1e-9
+FADE_EXPM_BOUND = {"float64": 1e-10, "float32": 1e-5}
+FADE_EXPM_BRANCHES = 3
+# phase 26: patterns of the GDD site lnL card vs host (fp64 Taylor,
+# relative; the spectral route at BUSTED's bound, the eigensolvers parting
+# at short branches, ROADMAP 3.5); the class weights' sum
+FMM_HOST_SITES, FMM_HOST_REL_BOUND, FMM_SPECTRAL_HOST_REL_BOUND = 64, 1e-9, 1e-6
+FMM_WEIGHT_SUM_BOUND = 1e-6
+FMM_JSON_KEYS = ["Evidence Ratios", "Site Log Likelihood", "analysis", "data partitions",
+                 "fits", "input", "test results", "tested", "timers"]
 # --busted-check: BUSTED uncapped in fp32 and fp64 on three inputs, each
 # fit's lnL finite and below 0 and the unconstrained lnL no lower than the
 # constrained one less ALT_NULL_SLACK (the refit from the constrained MLE
@@ -1100,7 +1171,7 @@ class _CallClock:
         self.torch = torch
         self.seconds, self.calls, self.last = {}, {}, {}
         self.each, self.first = {}, {}
-        self.eval_ms = []
+        self.eval_ms, self.eval_by = [], {}
         self.k1_by_partition = {}
         self._saved = []
         for module, name, label in targets:
@@ -1120,19 +1191,21 @@ class _CallClock:
         self._saved.append((owner, name, getattr(owner, name)))
         setattr(owner, name, replacement)
 
-    def _evaluations(self, objective):
+    def _evaluations(self, objective, label):
         def wrapped(idx, params):
             t0 = time.perf_counter()
             out = objective(idx, params)
             self.torch.cuda.synchronize()
-            self.eval_ms.append((time.perf_counter() - t0) * 1e3)
+            ms = (time.perf_counter() - t0) * 1e3
+            self.eval_ms.append(ms)
+            self.eval_by.setdefault(label, []).append(ms)
             return out
         return wrapped
 
     def _timed(self, fn, label):
         def wrapped(*args, **kwargs):
-            if label in ("grid", "nelder_mead"):
-                args = (self._evaluations(args[0]),) + args[1:]
+            if label in ("grid", "nelder_mead", "profile_ci"):
+                args = (self._evaluations(args[0], label),) + args[1:]
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             self.torch.cuda.synchronize()
@@ -1358,7 +1431,7 @@ def phase_partitions(torch, aln, newick: str, tmp: str, full_fit: bool) -> dict:
 
 
 def phase_options(torch, tmp: str) -> dict:
-    """``warmup fel --ci Yes --resample 10`` on 1000 taxa x 128 codons
+    """``warmup fel --ci Yes --resample 10`` on 128 taxa x 128 codons
     through the CLI in-process: the CI's and the bootstrap's seconds apart,
     and the columns checked.  Capped under ``--full-fit`` too: the profile's
     61 Nelder-Mead fits at their uncapped 80 iterations would take 2.5x the
@@ -1368,13 +1441,16 @@ def phase_options(torch, tmp: str) -> dict:
     from hyphy_tpu_torch.methods import fel
     from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
 
-    aln = synthetic_codon_alignment(N_TAXA, CI_CODONS, seed=SEED)
+    from hyphy_tpu_torch.tree.topology import Tree
+
+    aln = synthetic_codon_alignment(CI_TAXA, CI_CODONS, seed=SEED)
     fasta = os.path.join(tmp, "ci.fasta")
     with open(fasta, "w") as fh:
         fh.write("".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
     tree_path = os.path.join(tmp, "ci.nwk")
     with open(tree_path, "w") as fh:
-        fh.write(random_tree_newick(N_TAXA, seed=SEED))
+        fh.write(random_tree_newick(CI_TAXA, seed=SEED))
+    levels = len(Tree.from_newick(random_tree_newick(CI_TAXA, seed=SEED)).levels())
     out_json = os.path.join(tmp, "ci.FEL.json")
     argv = ["warmup", "fel", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
             "--ci", "Yes", "--resample", str(N_RESAMPLE)]
@@ -1409,7 +1485,9 @@ def phase_options(torch, tmp: str) -> dict:
                     "ci_width_median": float(np.median(ub - lb)),
                     "ub_at_cap": int((ub >= 10000.0).sum()), "lb_at_zero": int((lb == 0).sum())}
     res["profile_eval"] = prof = _profile_last_fit(torch, clock, "ci_site_eval")
-    log(f"[options] one batched evaluation of the last CI fit ({prof['sites']} sites) profiled: "
+    res["taxa"], res["tree_levels"] = CI_TAXA, levels
+    log(f"[options] {CI_TAXA} taxa, {levels} tree levels; one batched evaluation of the last CI "
+        f"fit ({prof['sites']} sites) profiled: "
         f"wall {prof['wall_ms']:.3f} ms, kernels {prof['device_ms']:.3f} ms in "
         f"{prof['launches']} launches, idle share {prof['idle_share']:.3f}; top {prof['top'][:3]}")
     log(f"[options] {res['command']}: {res['total_s']:.2f} s; stages, s: "
@@ -1977,6 +2055,22 @@ def _clade_members(tree, node):
     return out
 
 
+def _contrast_clades(tree):
+    """Disjoint clades near CONTRAST_CLADES leaves: for each in turn, the
+    non-root node whose leaf count is nearest (lowest id on ties), outside
+    and not above the clades taken.  Returns their node lists."""
+    leaves = {nd: sum(1 for m in _clade_members(tree, nd) if tree.is_leaf(m))
+              for nd in range(tree.n_nodes) if nd != tree.root}
+    taken, clades = set(), []
+    for size in CONTRAST_CLADES:
+        free = [nd for nd in leaves if not set(_clade_members(tree, nd)) & taken
+                and not any(nd in _clade_members(tree, c[0]) for c in clades)]
+        best = min(free, key=lambda nd: (abs(leaves[nd] - size), nd))
+        clades.append(_clade_members(tree, best))
+        taken |= set(clades[-1])
+    return clades
+
+
 def _contrast_alignment(tmp: str, kappa: float = 2.5, omega: float = 0.3):
     """The contrast alignment of phases 14-15: disjoint clades of
     ``random_tree_newick(N_TAXA, SEED)`` near CONTRAST_CLADES leaves (for
@@ -2001,15 +2095,7 @@ def _contrast_alignment(tmp: str, kappa: float = 2.5, omega: float = 0.3):
     gc = GeneticCode("Universal")
     tree = Tree.from_newick(synth.random_tree_newick(N_TAXA, seed=SEED))
     lengths = np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6)
-    leaves = {nd: sum(1 for m in _clade_members(tree, nd) if tree.is_leaf(m))
-              for nd in range(tree.n_nodes) if nd != tree.root}
-    taken, clades = set(), []
-    for size in CONTRAST_CLADES:
-        free = [nd for nd in leaves if not set(_clade_members(tree, nd)) & taken
-                and not any(nd in _clade_members(tree, c[0]) for c in clades)]
-        best = min(free, key=lambda nd: (abs(leaves[nd] - size), nd))
-        clades.append(_clade_members(tree, best))
-        taken |= set(clades[-1])
+    clades = _contrast_clades(tree)
     labels = {nd: lbl for lbl, clade in zip(CONTRAST_LABELS, clades) for nd in clade}
 
     def fmt(nd):
@@ -2061,9 +2147,10 @@ def _contrast_table(result, n_codons):
     return headers, table, p
 
 
-def phase_contrast_fel(torch, fasta: str, tree_path: str, tmp: str) -> dict:
-    """contrast-FEL at full width (G = 3) through ``warmup contrast-fel
-    --branch-set FG --branch-set REF``: seconds per stage, ms per batched
+def phase_contrast_fel(torch, aln, tree_path: str, tmp: str) -> dict:
+    """contrast-FEL (G = 3) on the contrast alignment cut to CFEL_CODONS
+    codons, at 1000 taxa, through ``warmup contrast-fel --branch-set FG
+    --branch-set REF``: seconds per stage, ms per batched
     site evaluation, one profiled, peak memory, K1 launches; the planted
     codons at p <= 0.1; the per-site lnL of 64 sites card vs host (fp64
     Taylor) and fp32 vs fp64 on every pattern; the substitution counts card
@@ -2072,6 +2159,7 @@ def phase_contrast_fel(torch, fasta: str, tree_path: str, tmp: str) -> dict:
 
     from hyphy_tpu_torch.methods import common, contrast_fel, fel
 
+    fasta = _cut_fasta(aln, os.path.join(tmp, "contrast_cfel.fasta"), CFEL_CODONS)
     out_json = os.path.join(tmp, "contrast.CFEL.json")
     argv = ["warmup", "contrast-fel", "--alignment", fasta, "--tree", tree_path,
             "--output", out_json]
@@ -2092,10 +2180,12 @@ def phase_contrast_fel(torch, fasta: str, tree_path: str, tmp: str) -> dict:
     res["site_eval_ms"] = _eval_stats(clock.eval_ms)
     with open(out_json) as fh:
         result = json.load(fh)
-    headers, table, p = _contrast_table(result, N_CODONS)
+    headers, table, p = _contrast_table(result, CFEL_CODONS)
     check(headers[1:4] == [f"beta ({g})" for g in CONTRAST_LABELS + ["background"]],
           f"contrast-FEL headers {headers}")
-    res["table"] = {"sites_p_le_0.1": int((p <= 0.1).sum()), "planted_p": p[PLANTED_SITES].tolist()}
+    planted = [s for s in PLANTED_SITES if s < CFEL_CODONS]
+    res["table"] = {"sites_p_le_0.1": int((p <= 0.1).sum()), "planted": planted,
+                    "planted_p": p[planted].tolist()}
     res["profile_eval"] = prof = _profile_last_fit(torch, clock, "contrast_fel_site_eval")
 
     (data, mgp, _), _ = clock.last["per_site"]
@@ -2134,7 +2224,8 @@ def phase_contrast_fel(torch, fasta: str, tree_path: str, tmp: str) -> dict:
         f"on {rows.shape[0]} patterns {res['site_fp32_vs_fp64']:.3e} (bound {SITE_FP32_BOUND}); "
         f"substitution counts card = host {res['counts_card_vs_host_equal']}, per set "
         f"{res['counts_per_set']}")
-    check(sum(x <= 0.1 for x in res["table"]["planted_p"]) >= 7,
+    # 7 of the 9 planted codons at full width: all but two of those kept
+    check(sum(x <= 0.1 for x in res["table"]["planted_p"]) >= len(planted) - 2,
           f"planted codons at p <= 0.1: {res['table']['planted_p']}")
     check(res["site_fp64_card_vs_host"] <= SITE_HOST_BOUND, "contrast-FEL site lnL: card vs host")
     check(res["site_fp32_vs_fp64"] <= SITE_FP32_BOUND, "contrast-FEL fp32 site lnL far from fp64")
@@ -2354,8 +2445,9 @@ def phase_meme_resample(torch, aln, tree_path: str, tmp: str) -> dict:
     return res
 
 
-def phase_prime(torch, fasta: str, tree_path: str, tmp: str) -> dict:
-    """PRIME at full width on phase 9's alignment through ``warmup prime``:
+def phase_prime(torch, aln, tree_path: str, tmp: str) -> dict:
+    """PRIME on phase 9's alignment cut to PRIME_CODONS codons, at 1000
+    taxa, through ``warmup prime``:
     seconds per stage, ms per batched site evaluation, K1 launches, peak
     memory; the per-site objective card vs host (fp64 Taylor) on
     SITE_PARITY_N sites at PRIME_POINTS and fp32 vs fp64 on every pattern;
@@ -2365,6 +2457,7 @@ def phase_prime(torch, fasta: str, tree_path: str, tmp: str) -> dict:
     from hyphy_tpu_torch import cli
     from hyphy_tpu_torch.methods import common, prime
 
+    fasta = _cut_fasta(aln, os.path.join(tmp, "prime.fasta"), PRIME_CODONS)
     out_json = os.path.join(tmp, "sim.PRIME.json")
     argv = ["warmup", "prime", "--alignment", fasta, "--tree", tree_path, "--output", out_json]
     clock, res = _run_cli(torch, argv, [
@@ -2383,7 +2476,7 @@ def phase_prime(torch, fasta: str, tree_path: str, tmp: str) -> dict:
     with open(out_json) as fh:
         result = json.load(fh)
     table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
-    check(table.shape == (N_CODONS, 18), f"PRIME table of shape {table.shape}")
+    check(table.shape == (PRIME_CODONS, 18), f"PRIME table of shape {table.shape}")
     check(bool(np.isfinite(table).all()), "non-finite entries in the PRIME table")
     pvals = table[:, [5 + 3 * k for k in range(5)]]
     check(bool(((pvals >= 0) & (pvals <= 1)).all()), "PRIME p-values outside [0, 1]")
@@ -3369,7 +3462,7 @@ def _absrel_copy(torch, model, data, device, dtype, patterns=None, multiple_hits
 
 
 def phase_absrel(torch, tmp: str) -> dict:
-    """aBSREL on ``simulated_codon_alignment(ABSREL_TAXA, N_CODONS)`` through
+    """aBSREL on ``simulated_codon_alignment(ABSREL_TAXA, ABSREL_CODONS)`` through
     ``warmup absrel --srv Yes``: seconds per stage (baseline, step-up with
     its fits and classes added, polish, nulls), ms per value and gradient,
     K1 launches, peak memory; two branch nulls (and the full refit) on the
@@ -3381,7 +3474,7 @@ def phase_absrel(torch, tmp: str) -> dict:
     from hyphy_tpu_torch import cli
     from hyphy_tpu_torch.methods import absrel, common
 
-    fasta, tree_path = _absrel_alignment(tmp, ABSREL_TAXA, N_CODONS)
+    fasta, tree_path = _absrel_alignment(tmp, ABSREL_TAXA, ABSREL_CODONS)
     out_json = os.path.join(tmp, "absrel.ABSREL.json")
     argv = ["warmup", "absrel", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
             "--srv", "Yes"]
@@ -3495,7 +3588,7 @@ def phase_absrel(torch, tmp: str) -> dict:
     check(res["site_fp32_vs_fp64"] <= BUSTED_FP32_SITE_BOUND, "aBSREL fp32 site lnL far from fp64")
     check(all(res["srv"][key] <= POSTERIOR_SUM_BOUND
               for key in ("weights_sum_dev", "mean_rate_dev", "posterior_sum_dev"))
-          and res["srv"]["posterior_shape"] == [3, N_CODONS], f"aBSREL SRV {res['srv']}")
+          and res["srv"]["posterior_shape"] == [3, ABSREL_CODONS], f"aBSREL SRV {res['srv']}")
     check(res["holm_monotone"], "aBSREL Holm-corrected p not monotone in the uncorrected p")
     check(len(nulls) == len(chosen) and all(full_lnl >= v - ALT_NULL_SLACK
                                             for v in nulls.values()),
@@ -3672,6 +3765,450 @@ def phase_relax_check(torch, tmp: str) -> dict:
     return res
 
 
+def _protein_alignment(tmp: str):
+    """Phases 24-25's protein alignment: N_TAXA x N_CODONS residues drawn
+    along ``random_tree_newick(N_TAXA, SEED)`` with
+    ``utils/simulate.py::simulate_states`` under WAG at unit mean rate
+    (``scipy.linalg.expm`` of the copied matrix), except that at the planted
+    positions below FADE_SITES the branches of the contrast tree's FG clade
+    evolve under FADE's biased generator toward FADE_TARGET (rate FADE_RATE,
+    bias FADE_BIAS).  Returns (alignment, FASTA, planted positions)."""
+    import numpy as np
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch.data.alignment import Alignment
+    from hyphy_tpu_torch.data.genetic_code import AMINO_ACIDS
+    from hyphy_tpu_torch.models.protein import load_empirical, rate_matrix_from_pairs
+    from hyphy_tpu_torch.tree.topology import Tree
+    from hyphy_tpu_torch.utils import synth
+    from hyphy_tpu_torch.utils.simulate import simulate_states, states_to_alignment
+
+    t0 = time.perf_counter()
+    tree = Tree.from_newick(synth.random_tree_newick(N_TAXA, seed=SEED))
+    lengths = np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6)
+    fg = _contrast_clades(tree)[0]
+    wag = load_empirical("WAG")
+    pi = np.asarray(wag["frequencies"], dtype=np.float64)
+    pi = pi / pi.sum()
+    q = rate_matrix_from_pairs(wag["rates"]) * pi[None, :]
+    q -= np.diag(q.sum(axis=1))
+    q /= -(pi * np.diag(q)).sum()
+    # FADE's rate modifier (FADE.bf:359-377) on the unit-rate generator
+    target = AMINO_ACIDS.index(FADE_TARGET)
+    mult = np.ones_like(q)
+    mult[:, target] = FADE_BIAS / -np.expm1(-FADE_BIAS)
+    mult[target, :] = FADE_BIAS / np.expm1(FADE_BIAS)
+    qb = FADE_RATE * (q - np.diag(np.diag(q))) * mult
+    qb -= np.diag(qb.sum(axis=1))
+    base = np.stack([sla.expm(q * t) for t in lengths])
+    biased = base.copy()
+    for nd in fg:
+        if nd != tree.root:
+            biased[nd] = sla.expm(qb * lengths[nd])
+    planted = [site for site in PLANTED_SITES if site < FADE_SITES]
+    rng = np.random.default_rng(SEED)
+    cols = np.setdiff1d(np.arange(N_CODONS), planted)
+    states = np.zeros((tree.n_nodes, N_CODONS), dtype=np.int32)
+    states[:, cols] = simulate_states(tree, base, pi, len(cols), rng)
+    states[:, planted] = simulate_states(tree, biased, pi, len(planted), rng)
+    names, seqs = states_to_alignment(states, tree, "protein")
+    fasta = os.path.join(tmp, "protein.fasta")
+    _write_fasta(fasta, names, seqs)
+    log(f"[protein] alignment of {N_TAXA} taxa x {N_CODONS} residues under WAG, FADE's "
+        f"generator toward {FADE_TARGET} (rate {FADE_RATE}, bias {FADE_BIAS}) on the "
+        f"{sum(tree.is_leaf(m) for m in fg)}-leaf FG clade at {planted}: "
+        f"{time.perf_counter() - t0:.2f} s on the host")
+    return Alignment(names, seqs), fasta, planted
+
+
+def _leisr_run(torch, kind: str, model: str, fasta: str, tree_path: str, tmp: str) -> dict:
+    """One ``warmup leisr`` run and its checks (phase 24)."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import leisr
+    from hyphy_tpu_torch.models.protein import EmpiricalProtein
+
+    out_json = os.path.join(tmp, f"{kind}.LEISR.json")
+    argv = ["warmup", "leisr", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
+            "--type", kind, "--model", model]
+    clock, res = _run_cli(torch, argv, [
+        (leisr, "fit_baseline", "baseline"),
+        (leisr, "fit_sites", "site_fits"),
+        (leisr, "vmapped_nelder_mead", "nelder_mead"),
+        (leisr, "vmapped_profile_ci", "profile_ci"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    sec = clock.seconds
+    res["stages_s"] = {"load_and_json": res["total_s"] - sec["baseline"] - sec["site_fits"],
+                       "baseline_fit": sec["baseline"],
+                       "site_fits": sec["site_fits"] - sec["profile_ci"],
+                       "ci": sec["profile_ci"]}
+    nm_evals = clock.eval_by["nelder_mead"]
+    res["nelder_mead_iterations"] = (len(nm_evals) - 2) // 3
+    res["nm_eval_ms"] = _eval_stats(nm_evals)
+    res["ci_eval_ms"] = _eval_stats(clock.eval_by["profile_ci"])
+    with open(out_json) as fh:
+        result = json.load(fh)
+    headers = [h[0] for h in result["MLE"]["headers"]]
+    table = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    check(headers == ["MLE", "Lower", "Upper", "LogL global", "LogL local"],
+          f"LEISR headers {headers}")
+
+    lf, tree, _ = clock.first["baseline"]
+    fit = clock.last["baseline"][1]
+    part = lf.partitions[0]
+    filt, mdl = part.filter, part.model
+    n_sites = len(filt.duplicate_map)
+    check(table.shape == (n_sites, 5) and bool(np.isfinite(table).all()),
+          f"LEISR table of shape {table.shape}, finite {np.isfinite(table).all()}")
+    mle, lb, ub, glob, local = table.T
+    est = mle > 0
+    res["table"] = {"sites": n_sites, "patterns": int(filt.n_patterns),
+                    "estimated": int(est.sum()), "median_rate": float(np.median(mle[est])),
+                    "ub_at_cap": int((ub >= 1e26).sum()), "lb_at_floor": int((lb <= 1e-8).sum())}
+    check(bool(((lb[est] <= mle[est] + 1e-6) & (ub[est] >= mle[est] - 1e-6)).all()),
+          "LEISR: LB <= MLE <= UB fails at a site with MLE > 0")
+    res["local_minus_global_min"] = float((local - glob).min())
+    check(res["local_minus_global_min"] >= -LEISR_LOCAL_SLACK,
+          f"LEISR: LogL local below LogL global by {-res['local_minus_global_min']}")
+    constant = filt.constant_pattern_mask()[filt.duplicate_map]
+    res["constant_sites"] = int(constant.sum())
+    check(bool((table[constant, :2] == 0).all()), "LEISR: constant sites without r = 0, LB = 0")
+
+    # the objective: fp64 card vs host on identical inputs, fp32 vs fp64
+    params = {k: v.detach() for k, v in fit.params.items()}
+    host_params = {k: v.cpu() for k, v in params.items()}
+    if kind == "protein":
+        host_model = EmpiricalProtein(model, frequencies=mdl.frequencies.cpu().numpy(),
+                                      device="cpu")
+    else:
+        host_model = leisr._nucleotide_model(model, filt, "cpu")
+    card64 = leisr.site_log_likelihood(mdl, params, filt, tree, torch.float64, spectral=True)
+    host64 = leisr.site_log_likelihood(host_model, host_params, filt, tree, torch.float64,
+                                       spectral=True)
+    card32 = leisr.site_log_likelihood(mdl, params, filt, tree, torch.float32, spectral=False)
+    n = min(SITE_PARITY_N, filt.n_patterns)
+    idx = torch.arange(n, device=DEVICE)
+    f64 = dict(dtype=torch.float64, device=DEVICE)
+    res["site_fp64_card_vs_host_rel"] = {}
+    with torch.no_grad():
+        for r in LEISR_RATES:
+            rr = torch.full((n,), r, **f64)
+            card, host = card64(idx, rr).cpu(), host64(idx.cpu(), rr.cpu())
+            res["site_fp64_card_vs_host_rel"][str(r)] = float(((card - host).abs()
+                                                               / host.abs()).max())
+        rows = torch.arange(filt.n_patterns, device=DEVICE)
+        ones = torch.ones(rows.shape[0], **f64)
+        res["site_fp32_vs_fp64"] = float((card32(rows, ones).double()
+                                          - card64(rows, ones)).abs().max())
+        res["site_eval_fp32_ms"] = _event_and_wall_ms(torch, lambda: card32(rows, ones), 3)
+        # the profile CI of the first variable patterns, fp32 against fp64
+        r_all = clock.last["site_fits"][1][0]
+        variable = np.nonzero(~filt.constant_pattern_mask())[0][:LEISR_CI_SITES]
+        ci_idx = torch.as_tensor(variable, device=DEVICE)
+        r_ci = torch.as_tensor(r_all[variable], **f64)
+        bounds = {}
+        for name, obj in (("float64", card64), ("float32", card32)):
+            bounds[name] = [b.cpu().numpy() for b in leisr.vmapped_profile_ci(
+                obj, ci_idx, r_ci, obj(ci_idx, r_ci))]
+    at_cap = [(a <= 1e-8 * (1 + 1e-9)) & (b <= 1e-8 * (1 + 1e-9)) if k == 0 else
+              (a >= 1e26 * (1 - 1e-9)) & (b >= 1e26 * (1 - 1e-9))
+              for k, (a, b) in enumerate(zip(bounds["float32"], bounds["float64"]))]
+    rel = [np.where(cap, 0.0, np.abs(a - b) / np.abs(b))
+           for cap, a, b in zip(at_cap, bounds["float32"], bounds["float64"])]
+    res["ci_fp32_vs_fp64"] = {"sites": len(variable), "lower_max_rel": float(rel[0].max()),
+                              "upper_max_rel": float(rel[1].max()),
+                              "lower_both_at_floor": int(at_cap[0].sum()),
+                              "upper_both_at_cap": int(at_cap[1].sum())}
+    log(f"[leisr] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; Nelder-Mead iterations {res['nelder_mead_iterations']}")
+    log(f"[leisr] {kind}: K1 launches {res['level_products_launches']}; peak "
+        f"{res['peak_gb']:.2f} GB; batched site evaluations, Nelder-Mead "
+        f"{_rounded(res['nm_eval_ms'])} ms, CI {_rounded(res['ci_eval_ms'])} ms; one fp32 "
+        f"evaluation of {filt.n_patterns} patterns {_rounded(res['site_eval_fp32_ms'])}; "
+        f"table {res['table']}")
+    log(f"[leisr] {kind}: site lnL fp64 card vs host on {n} patterns (relative) "
+        f"{ {k: f'{v:.3e}' for k, v in res['site_fp64_card_vs_host_rel'].items()} } (bound "
+        f"{LEISR_HOST_REL_BOUND}); fp32 Taylor vs fp64 on {filt.n_patterns} patterns "
+        f"{res['site_fp32_vs_fp64']:.3e} (bound {SITE_FP32_BOUND}); LogL local - global min "
+        f"{res['local_minus_global_min']:.3e}; CI fp32 vs fp64 {res['ci_fp32_vs_fp64']} "
+        f"(bound {LEISR_CI_REL_BOUND})")
+    for r, d in res["site_fp64_card_vs_host_rel"].items():
+        check(d <= LEISR_HOST_REL_BOUND, f"LEISR site lnL card vs host at r = {r}: {d}")
+    check(res["site_fp32_vs_fp64"] <= SITE_FP32_BOUND, "LEISR fp32 site lnL far from fp64")
+    check(max(res["ci_fp32_vs_fp64"]["lower_max_rel"], res["ci_fp32_vs_fp64"]["upper_max_rel"])
+          <= LEISR_CI_REL_BOUND, f"LEISR CI fp32 vs fp64 {res['ci_fp32_vs_fp64']}")
+    check(res["level_products_launches"] > 0, "LEISR launched no level_products kernel")
+    return res
+
+
+def phase_leisr(torch, prot_fasta: str, nuc_fasta: str, tree_path: str, tmp: str) -> dict:
+    """LEISR at full width: ``warmup leisr --type protein --model LG`` on the
+    protein alignment and ``warmup leisr --type nucleotide --model GTR`` on
+    bench.py's alignment read as nucleotides (1000 x 6144 nt), in-process:
+    seconds per stage (load, baseline fit, site fits, CI), Nelder-Mead
+    iterations, ms per batched site evaluation, K1 launches, peak memory;
+    the site lnL card vs host (fp64) at r = 1 and three other rates, fp32
+    vs fp64 per pattern, LB <= MLE <= UB, LogL local >= LogL global, r = 0
+    at constant sites, the CI of 64 sites fp32 against fp64."""
+    res = {}
+    launches = 0
+    for kind, model, fasta in (("protein", "LG", prot_fasta), ("nucleotide", "GTR", nuc_fasta)):
+        res[kind] = _leisr_run(torch, kind, model, fasta, tree_path, tmp)
+        launches += res[kind]["level_products_launches"]
+        torch.cuda.empty_cache()
+    res["level_products_launches"] = launches
+    return res
+
+
+def phase_fade(torch, prot_aln, planted, con_tree: str, tmp: str) -> dict:
+    """FADE on the protein alignment's first FADE_SITES residues along the
+    contrast tree, ``warmup fade --model WAG --branches FG`` (grid 20: 400
+    points, all 20 residues, Variational-Bayes), in-process: seconds per
+    target (grid pass, posterior), grid points per chunk, K1 launches, peak
+    memory; six grid points card vs host (fp64) and fp32 vs fp64, the
+    biased propagators at bias 50 against ``scipy.linalg.expm``,
+    Prob[bias>0] in [0, 1], the planted residues' Prob[bias>0] toward
+    FADE_TARGET above the rest's."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch.data.genetic_code import AMINO_ACIDS
+    from hyphy_tpu_torch.methods import fade, fubar
+    from hyphy_tpu_torch.models.protein import EmpiricalProtein
+    from hyphy_tpu_torch.ops import expm as expm_ops
+    from hyphy_tpu_torch.ops import pruning
+    from hyphy_tpu_torch.optimize import batched
+
+    fasta = os.path.join(tmp, "fade.fasta")
+    _write_fasta(fasta, prot_aln.names, [s[:FADE_SITES] for s in prot_aln.sequences])
+    out_json = os.path.join(tmp, "protein.FADE.json")
+    argv = ["warmup", "fade", "--alignment", fasta, "--tree", con_tree, "--output", out_json,
+            "--model", "WAG", "--branches", CONTRAST_LABELS[0]]
+    chunks = []
+    original_solve = fubar.chunked_site_solve      # FADE's grid passes are FUBAR's
+
+    def recorded_solve(solver, n_items, bytes_per_item, device, chunk=None):
+        chunks.append({"points": n_items, "bytes_per_point": bytes_per_item,
+                       "chunk": chunk or batched.site_chunk(n_items, bytes_per_item, device)})
+        return original_solve(solver, n_items, bytes_per_item, device, chunk=chunk)
+
+    fubar.chunked_site_solve = recorded_solve
+    try:
+        clock, res = _run_cli(torch, argv, [
+            (fade, "fit_baseline", "baseline"),
+            (fade, "grid_pruning", "grid_pruning"),
+            (fade, "grid_pass", "grid_pass"),
+            (fade, "posterior_over_grid", "posterior"),
+        ])
+    finally:
+        fubar.chunked_site_solve = original_solve
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    res["grid_pass_s"] = clock.each["grid_pass"]
+    res["posterior_s"] = clock.each["posterior"]
+    res["chunks"] = chunks[0]
+    res["chunks_per_pass"] = -(-chunks[0]["points"] // chunks[0]["chunk"])
+    with open(out_json) as fh:
+        result = json.load(fh)
+    check(sorted(result["MLE"]["content"]) == sorted(AMINO_ACIDS),
+          f"FADE residues {sorted(result['MLE']['content'])}")
+    tables = {r: np.asarray(v["0"], dtype=np.float64) for r, v in result["MLE"]["content"].items()}
+    p_pos = np.stack([tables[r][:, 2] for r in AMINO_ACIDS])           # [20, sites]
+    check(all(t.shape == (FADE_SITES, 4) for t in tables.values()), "FADE table shapes")
+    check(bool(np.isfinite(p_pos).all() and (p_pos >= 0).all() and (p_pos <= 1 + 1e-12).all()),
+          "FADE Prob[bias>0] outside [0, 1]")
+    k = AMINO_ACIDS.index(FADE_TARGET)
+    rest = np.setdiff1d(np.arange(FADE_SITES), planted)
+    res["target"] = {"planted_p": p_pos[k, planted].tolist(),
+                     "planted_mean": float(p_pos[k, planted].mean()),
+                     "rest_mean": float(p_pos[k, rest].mean()),
+                     "planted_ge_0.9": int((p_pos[k, planted] >= 0.9).sum()),
+                     "unplanted_sites_ge_0.9_any_residue": int((p_pos[:, rest] >= 0.9).any(0).sum()),
+                     "site_annotations": result["site annotations"]}
+
+    # a grid chunk toward the target: card vs host in fp64, fp32 vs fp64
+    gp, grid_t, _ = clock.last["grid_pass"][0]
+    mdl, filt, tree, t_hat, tested = clock.first["grid_pruning"]
+    host_model = EmpiricalProtein("WAG", frequencies=mdl.frequencies.cpu().numpy(), device="cpu")
+    gp_host = fade.grid_pruning(host_model, filt, tree, t_hat.detach().cpu(), tested)
+    gp64 = dataclasses.replace(gp, leaves=gp.leaves.double(), dtype=torch.float64)
+    pts = torch.as_tensor(FADE_HOST_POINTS, device=DEVICE)
+    with torch.no_grad():
+        card64 = pruning.site_log_likelihoods(gp64.propagators(grid_t[pts], k), gp64.leaves,
+                                              gp64.freqs, gp64.schedule).cpu()
+        host64 = pruning.site_log_likelihoods(gp_host.propagators(grid_t[pts].cpu(), k),
+                                              gp_host.leaves, gp_host.freqs, gp_host.schedule)
+        card32 = pruning.site_log_likelihoods(gp.propagators(grid_t[pts], k), gp.leaves,
+                                              gp.freqs.to(gp.dtype), gp.schedule).cpu()
+    finite = torch.isfinite(host64)
+    res["host_points"] = FADE_HOST_POINTS
+    res["card_vs_host_inf_equal"] = bool(torch.equal(torch.isfinite(card64), finite)
+                                         and torch.equal(torch.isfinite(card32), finite))
+    res["minus_inf_entries"] = int((~finite).sum())
+    res["card_vs_host_rel"] = float(((card64 - host64).abs() / host64.abs())[finite].max())
+    res["fp32_vs_fp64"] = float((card32 - card64)[finite].abs().max())
+    # the biased propagators at bias 50 against scipy, on tested branches
+    top = grid_t[pts][grid_t[pts][:, 1] == grid_t[:, 1].max()]
+    rows = gp.tested_rows[:FADE_EXPM_BRANCHES]
+    q = fade.biased_generators(gp.s_pi, top, k)
+    with torch.no_grad():
+        p64 = expm_ops.taylor_propagators_batched(
+            q, gp.tested_t[:FADE_EXPM_BRANCHES, None].expand(-1, top.shape[0])).cpu().numpy()
+        p32 = gp.propagators(top, k)[:, rows].transpose(0, 1).double().cpu().numpy()
+    want = np.stack([[sla.expm(qg * float(tb)) for qg in q.cpu().numpy()]
+                     for tb in gp.tested_t[:FADE_EXPM_BRANCHES].cpu().numpy()])
+    res["expm_bias50"] = {"float64": float(np.abs(p64 - want).max()),
+                          "float32": float(np.abs(p32 - want).max()),
+                          "points": top.cpu().numpy().tolist()}
+    per_target = [g + p for g, p in zip(res["grid_pass_s"], res["posterior_s"])]
+    log(f"[fade] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{key} {v:.3f}" for key, v in res["stages_s"].items())
+        + f"; per target: grid pass {_rounded(_eval_stats(res['grid_pass_s']))} s, posterior "
+        f"{_rounded(_eval_stats(res['posterior_s']))} s, both {sum(per_target):.2f} s; chunk "
+        f"{res['chunks']} ({res['chunks_per_pass']} per pass)")
+    log(f"[fade] K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
+        f"toward {FADE_TARGET}: planted Prob[bias>0] "
+        f"{[round(x, 4) for x in res['target']['planted_p']]} (mean "
+        f"{res['target']['planted_mean']:.4f}, the rest {res['target']['rest_mean']:.4f}); "
+        f"planted >= 0.9: {res['target']['planted_ge_0.9']}; unplanted sites >= 0.9 for any "
+        f"residue: {res['target']['unplanted_sites_ge_0.9_any_residue']}")
+    log(f"[fade] grid points {FADE_HOST_POINTS} toward {FADE_TARGET}: fp64 card vs host max rel "
+        f"{res['card_vs_host_rel']:.3e} (bound {FADE_HOST_REL_BOUND}), -inf at the same "
+        f"{res['minus_inf_entries']} entries {res['card_vs_host_inf_equal']}; fp32 vs fp64 "
+        f"{res['fp32_vs_fp64']:.3e} (bound {SITE_FP32_BOUND}); biased propagators at bias 50 vs "
+        f"scipy {res['expm_bias50']} (bounds {FADE_EXPM_BOUND})")
+    check(res["card_vs_host_inf_equal"], "FADE grid: -inf at other entries on card and host")
+    check(res["card_vs_host_rel"] <= FADE_HOST_REL_BOUND, "FADE grid: card vs host")
+    check(res["fp32_vs_fp64"] <= SITE_FP32_BOUND, "FADE grid: fp32 far from fp64")
+    for name, bound in FADE_EXPM_BOUND.items():
+        check(res["expm_bias50"][name] <= bound, f"FADE {name} biased propagators vs scipy")
+    check(res["target"]["planted_mean"] > res["target"]["rest_mean"],
+          f"FADE toward {FADE_TARGET}: planted mean {res['target']['planted_mean']} not above "
+          f"the rest's {res['target']['rest_mean']}")
+    check(res["level_products_launches"] > 0, "FADE launched no level_products kernel")
+    return res
+
+
+def phase_fmm(torch, fasta: str, tree_path: str, tmp: str) -> dict:
+    """FitMultiModel at full width on bench.py's alignment, ``warmup fmm``,
+    in-process: seconds per fit (GTR, MG94, 1H, each coarse and polish fit
+    of 2H and 3H), ms per GDD value and value+gradient with K1 launches per
+    value (3 classes folded), peak memory; the GDD site lnL at the fitted 3H
+    point card vs host (fp64 Taylor, and spectral), fp32 vs fp64 per
+    pattern, the class weights' sums, every lnL, LRT and evidence ratio
+    finite, the JSON's keys."""
+    import numpy as np
+
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.methods import common, fmm
+    from hyphy_tpu_torch.models.codon import MG94xREVMultiHitGDD
+
+    out_json = os.path.join(tmp, "bench.FMM.json")
+    argv = ["warmup", "fmm", "--alignment", fasta, "--tree", tree_path, "--output", out_json]
+    clock, res = _run_cli(torch, argv, [
+        (common, "fit_gtr", "gtr"),
+        (common, "fit_partitioned_mg94", "mg94"),
+        (fmm, "_fit_one", "gdd"),
+        (LikelihoodFunction, "fit", "fit"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    fits = clock.each["fit"]
+    gdd_fits = fits[-11:]
+    res["fits_s"] = {"gtr_and_mg94": fits[:-11], "1H": gdd_fits[0],
+                     "2H_coarse": gdd_fits[1:4], "2H_polish": gdd_fits[4:6],
+                     "3H_coarse": gdd_fits[6:9], "3H_polish": gdd_fits[9:11]}
+    check(len(fits) >= 13, f"FMM ran {len(fits)} fits")
+    with open(out_json) as fh:
+        result = json.load(fh)
+    check(sorted(result) == FMM_JSON_KEYS, f"FMM JSON keys {sorted(result)}")
+    lnls = {name: fit["Log Likelihood"] for name, fit in result["fits"].items()}
+    tests = result["test results"]
+    er = {k: np.asarray(v, dtype=np.float64) for k, v in result["Evidence Ratios"].items()}
+    sll = {k: np.asarray(v, dtype=np.float64) for k, v in result["Site Log Likelihood"].items()}
+    check(len(lnls) == 4 and all(math.isfinite(v) for v in lnls.values()), f"FMM lnLs {lnls}")
+    check(all(math.isfinite(t["LRT"]) and 0.0 <= t["p-value"] <= 1.0 for t in tests.values()),
+          f"FMM tests {tests}")
+    check(all(v.shape == (1, N_CODONS) and np.isfinite(v).all() for v in er.values()),
+          "FMM evidence ratios")
+    check(all(v.shape == (1, N_CODONS) and np.isfinite(v).all() for v in sll.values()),
+          "FMM site lnLs")
+    res["lnl"], res["tests"] = lnls, tests
+
+    # the class weights of the three GDD fits, as the JSON reports them
+    weight_sums = [sum(w for _, w in fit["Rate Distributions"]
+                       ["non-synonymous/synonymous rate ratio"])
+                   for fit in result["fits"].values() if "Rate Distributions" in fit]
+    check(len(weight_sums) == 3, f"FMM rate distributions of {len(weight_sums)} fits")
+
+    # the fitted 3H point: its value and gradient, card vs host, fp32 vs fp64
+    fit3, model, _ = clock.last["gdd"][1]
+    lf = fit3.lf
+    params = {k: v.detach() for k, v in fit3.params.items()}
+    with torch.no_grad():
+        omegas, weights = model.class_distribution(params)
+    weight_sums.append(float(weights.double().sum()))
+    res["class_distribution"] = {"omegas": omegas.cpu().tolist(), "weights": weights.cpu().tolist()}
+    res["weight_sum_minus_1"] = max(abs(w - 1.0) for w in weight_sums)
+    res["value"] = _value_stats(torch, lf.loglik, params, "fmm_value")
+    part = lf.partitions[0]
+    sub = part.filter.subset_sites(np.arange(3 * FMM_HOST_SITES))     # nucleotide columns
+    host_model = MG94xREVMultiHitGDD(
+        model.gc, model.corner_freqs, model.frequencies.cpu().numpy(), model.branch_groups,
+        model.n_groups, hits=model.hits, rate_classes=model.rate_classes,
+        triple_islands=model.triple_islands, device="cpu")
+    host_params = {k: v.cpu() for k, v in params.items()}
+    res["site_fp64_card_vs_host_rel"] = {}
+    with torch.no_grad():
+        for route in ("taylor", "spectral"):
+            model.spectral = host_model.spectral = route == "spectral"
+            try:
+                card = LikelihoodFunction([Partition(sub, part.tree, model)], dtype="float64",
+                                          device=DEVICE).site_log_likelihoods(params)[0].cpu()
+                host = LikelihoodFunction([Partition(sub, part.tree, host_model)],
+                                          dtype="float64",
+                                          device="cpu").site_log_likelihoods(host_params)[0]
+            finally:
+                model.spectral = host_model.spectral = None
+            res["site_fp64_card_vs_host_rel"][route] = float(((card - host).abs()
+                                                              / host.abs()).max())
+        model.spectral = False
+        try:
+            lf64 = LikelihoodFunction(lf.partitions, dtype="float64", device=DEVICE)
+            s64 = lf64.site_log_likelihoods(params)[0]
+        finally:
+            model.spectral = None
+        s32 = lf.site_log_likelihoods(params)[0]
+        res["site_fp32_vs_fp64"] = float((s32.double() - s64).abs().max())
+    log(f"[fmm] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{key} {v:.3f}" for key, v in res["stages_s"].items())
+        + f"; fits, s: {_rounded(res['fits_s'])}")
+    val = res["value"]
+    log(f"[fmm] K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; GDD "
+        f"value {_rounded(val['value_ms'])} ms, value+gradient {_rounded(val['value_grad_ms'])} "
+        f"ms, K1 launches per value {val['k1_launches_per_value']}; one value profiled: wall "
+        f"{val['profile_value']['wall_ms']:.3f} ms, kernels {val['profile_value']['device_ms']:.3f} "
+        f"ms in {val['profile_value']['launches']} launches, idle share "
+        f"{val['profile_value']['idle_share']:.3f}")
+    log(f"[fmm] lnL {lnls}; tests {tests}; 3H classes {res['class_distribution']}; GDD site "
+        f"lnL card vs host on {sub.n_patterns} patterns (fp64, relative) "
+        f"{res['site_fp64_card_vs_host_rel']} (bounds Taylor {FMM_HOST_REL_BOUND}, spectral "
+        f"{FMM_SPECTRAL_HOST_REL_BOUND}); fp32 vs fp64 Taylor {res['site_fp32_vs_fp64']:.3e} "
+        f"(bound {SITE_FP32_BOUND})")
+    check(res["weight_sum_minus_1"] <= FMM_WEIGHT_SUM_BOUND, "FMM class weights do not sum to 1")
+    check(res["site_fp64_card_vs_host_rel"]["taylor"] <= FMM_HOST_REL_BOUND,
+          "FMM GDD site lnL card vs host (Taylor)")
+    check(res["site_fp64_card_vs_host_rel"]["spectral"] <= FMM_SPECTRAL_HOST_REL_BOUND,
+          "FMM GDD site lnL card vs host (spectral)")
+    check(res["site_fp32_vs_fp64"] <= SITE_FP32_BOUND, "FMM fp32 GDD site lnL far from fp64")
+    check(res["level_products_launches"] > 0, "FMM launched no level_products kernel")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -3709,6 +4246,10 @@ def main(argv) -> int:
                 if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")
     per_eval = next(r for r in record["kernels"]["evaluation"]
                     if r["states"] == 61 and r["dtype"] == "float32")
+    protein = next(r for r in record["kernels"]["shapes"]
+                   if r["shape"] == list(KERNEL_SHAPES[4]) and r["dtype"] == "float32")
+    protein_eval = next(r for r in record["kernels"]["evaluation"]
+                        if r["states"] == 20 and r["dtype"] == "float32")
     if not checks:
         # K1 inside a real fp32 evaluation (phase 5's profile) against phase
         # 3's per-level times on fresh random inputs, level by level
@@ -3729,6 +4270,9 @@ def main(argv) -> int:
         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
         "eval_ms": per_eval["ms"], "eval_library_ms": per_eval["library_ms"],
         "eval_bound_ms": per_eval["bound_ms"],
+        "protein_ms": protein["ms"], "protein_plain_ms": protein["plain_ms"],
+        "protein_bound_ms": protein["bound_ms"], "protein_library_ms": protein["library_ms"],
+        "protein_eval_ms": protein_eval["ms"], "protein_eval_bound_ms": protein_eval["bound_ms"],
         "launches_by_phase": by_phase,
     } for name in SOURCES]
     if not checks:
@@ -3744,7 +4288,7 @@ def main(argv) -> int:
 
 
 def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
-    """Phases 4-23 into ``record``; returns the names of those that drive a
+    """Phases 4-26 into ``record``; returns the names of those that drive a
     method through its entry point (each reads K1's launch count around
     its run)."""
     def timed(name, fn, *args):
@@ -3778,19 +4322,23 @@ def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
     timed("fubar", phase_fubar, torch, sim_fasta, sim_tree, tmp)
     timed("bstill", phase_bstill, torch, sim_aln, sim_tree, tmp)
     con_aln, con_fasta, con_tree = _contrast_alignment(tmp)
-    timed("contrast_fel", phase_contrast_fel, torch, con_fasta, con_tree, tmp)
+    timed("contrast_fel", phase_contrast_fel, torch, con_aln, con_tree, tmp)
     timed("contrast_meme", phase_contrast_meme, torch, con_aln, con_tree, tmp)
     timed("meme_resample", phase_meme_resample, torch, sim_aln, sim_tree, tmp)
-    timed("prime", phase_prime, torch, sim_fasta, sim_tree, tmp)
+    timed("prime", phase_prime, torch, sim_aln, sim_tree, tmp)
     timed("busted", phase_busted, torch, sim_fasta, sim_tree, tmp)
     timed("busted_e", phase_busted_e, torch, sim_aln, sim_tree, tmp)
     timed("busted_ph", phase_busted_ph, torch, con_aln, con_tree, tmp)
     timed("relax", phase_relax, torch, con_fasta, con_tree, tmp)
     timed("relax_groups", phase_relax_groups, torch, con_aln, con_tree, tmp)
     timed("absrel", phase_absrel, torch, tmp)
+    prot_aln, prot_fasta, planted = _protein_alignment(tmp)
+    timed("leisr", phase_leisr, torch, prot_fasta, fasta, tree_path, tmp)
+    timed("fade", phase_fade, torch, prot_aln, planted, con_tree, tmp)
+    timed("fmm", phase_fmm, torch, fasta, tree_path, tmp)
     return ("main_path", "partitions", "options", "slac", "simulate", "meme", "fubar",
             "bstill", "contrast_fel", "contrast_meme", "meme_resample", "prime", "busted",
-            "busted_e", "busted_ph", "relax", "relax_groups", "absrel")
+            "busted_e", "busted_ph", "relax", "relax_groups", "absrel", "leisr", "fade", "fmm")
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

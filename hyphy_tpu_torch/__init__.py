@@ -6,8 +6,10 @@ imports ``torch``, numpy and scipy, and nothing of ``jax`` or ``hyphy_tpu``:
 the numpy-only modules it needs (``data/``, ``tree/``, ``utils/synth.py``,
 ``io/json_out.py``) are copies kept here.
 
-The analysis ported so far is FEL: ``methods.fel.run`` and
-``python -m hyphy_tpu_torch fel`` (``cli.py``).  The one hand-written kernel so far is the pruning level step
+The analyses are in ``methods/`` (FEL, SLAC, MEME, FUBAR, B-STILL, the
+contrast methods, PRIME, the BUSTED family, RELAX, aBSREL, LEISR, FADE,
+FitMultiModel, ``simulate``), each also a command of ``python -m
+hyphy_tpu_torch`` (``cli.py``).  The one hand-written kernel is the pruning level step
 (``ops/level_products.py`` over ``csrc/level_products.cu``); everything else
 is plain PyTorch.  Entry points take ``device=None``, which resolves to
 ``settings.device`` (``"cuda"`` by default) and raises without a card.

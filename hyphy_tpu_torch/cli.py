@@ -2,8 +2,9 @@
 
 Counterpart of ``hyphy_tpu/cli.py`` for the ported methods (FEL, SLAC,
 MEME, FUBAR, B-STILL, contrast-FEL, contrast-MEME, PRIME, BUSTED,
-BUSTED-PH, RELAX, aBSREL, ``simulate``, and the post-processors
-``error-filter`` and ``clade-support``), with the JAX parser's flags; it
+BUSTED-PH, RELAX, aBSREL, FitMultiModel, LEISR, FADE, ``simulate``, and the
+post-processors ``error-filter`` and ``clade-support``), with the JAX
+parser's flags; it
 writes ``<alignment>.<METHOD>.json`` like the reference analyses do.  It
 runs on ``settings.device`` — the card, raising without one; there is no
 device flag, as the JAX CLI has none.
@@ -40,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pw.add_argument("target", help="method to warm up (fel, slac, meme, fubar, b-still, "
                                    "contrast-fel, contrast-meme, simulate, prime, busted, "
-                                   "busted-ph, relax, absrel)")
+                                   "busted-ph, relax, absrel, fmm, leisr, fade)")
     pw.add_argument("rest", nargs=argparse.REMAINDER,
                     help="arguments passed through to the method")
 
@@ -206,6 +207,25 @@ def build_parser() -> argparse.ArgumentParser:
     common_args(p)
     p.add_argument("--branches", default="All")
     p.add_argument("--pvalue", type=float, default=0.1)
+
+    p = sub.add_parser("fmm", help="FitMultiModel: double/triple-hit codon model comparison")
+    common_args(p)
+
+    p = sub.add_parser("leisr", help="Per-site relative evolutionary rates (Rate4Site-like)")
+    common_args(p)
+    p.add_argument("--type", dest="datatype", default="nucleotide",
+                   choices=["nucleotide", "protein"])
+    p.add_argument("--model", default="GTR", help="GTR/HKY85/JC69 or LG/WAG/JTT/...")
+
+    p = sub.add_parser("fade",
+                       help="FUBAR Approach to Directional Evolution (protein, rooted tree)")
+    common_args(p)
+    p.add_argument("--branches", default="All")
+    p.add_argument("--model", default="WAG")
+    p.add_argument("--grid", type=int, default=20)
+    p.add_argument("--method", dest="posterior_method", default="Variational-Bayes",
+                   choices=["Variational-Bayes", "Collapsed-Gibbs", "Metropolis-Hastings"])
+    p.add_argument("--concentration_parameter", type=float, default=0.5)
     return parser
 
 
@@ -337,6 +357,20 @@ def main(argv=None) -> int:
         from hyphy_tpu_torch.methods import prime
 
         result = prime.run(args.alignment, args.code, tree, args.branches, pvalue=args.pvalue)
+    elif args.method == "fmm":
+        from hyphy_tpu_torch.methods import fmm
+
+        result = fmm.run(args.alignment, args.code, tree)
+    elif args.method == "leisr":
+        from hyphy_tpu_torch.methods import leisr
+
+        result = leisr.run(args.alignment, datatype=args.datatype, model=args.model, tree=tree)
+    elif args.method == "fade":
+        from hyphy_tpu_torch.methods import fade
+
+        result = fade.run(args.alignment, model=args.model, tree=tree, branches=args.branches,
+                          grid_points=args.grid, method=args.posterior_method,
+                          concentration=args.concentration_parameter)
     else:
         from hyphy_tpu_torch.methods import simulate
 

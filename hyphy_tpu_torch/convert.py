@@ -4,7 +4,10 @@ A JAX-package parameter dict maps names to arrays; as numpy (for example
 ``{k: np.asarray(s.initial(), np.float64) ...}``, the way ``bench.py``
 builds its point) it moves into the port with :func:`params_from_numpy`
 and back with :func:`params_to_numpy`, so both packages evaluate the same
-point.
+point.  Every model keeps the JAX package's parameter names and shapes (the
+protein models' ``t`` and ``r_XY``, the GDD model's ``omega_c``,
+``omega_w``, ``delta``, ``psi`` and ``psi_syn``), so a dict moves across by
+name.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 Counterpart of ``hyphy_tpu/likelihood.py`` (the reference's
 ``_LikelihoodFunction``, ``src/core/likefunc.h:159``) on one device:
 ``loglik(params)`` evaluates every partition eagerly — model build, then
-level-by-level pruning through the K1 kernel, then the pattern-weighted
-reduction in fp64 — and ``fit`` maximizes it with the host L-BFGS-B driver
-over autograd gradients.  ``pattern_bucket``, ``schedule_pad``,
+level-by-level pruning through the K1 kernel (a model's site-level rate
+classes folded into K1's node axis and mixed in fp64), then the
+pattern-weighted reduction in fp64 — and ``fit`` maximizes it with the
+host L-BFGS-B driver over autograd gradients.  ``pattern_bucket``, ``schedule_pad``,
 ``covariance_matrix`` and ``profile_ci`` are not ported yet.
 """
 
@@ -118,10 +119,23 @@ class LikelihoodFunction:
             for name, key in self._key_maps[i].items()
         }
         out: ModelOutput = part.model.build(local, part.tree.n_branches)
-        return pruning.site_log_likelihoods(
+        if out.class_weights is None:
+            return pruning.site_log_likelihoods(
+                out.p_matrices, self._leaf_partials[i], out.root_freqs,
+                self._pruning_data[i],
+            )
+        # site-level rate classes (the JAX package's
+        # ``mixture_site_log_likelihoods``, one pruning per class): the
+        # classes fold into K1's node axis through the grid form, one launch
+        # per level for all of them, with the JAX package's ``finfo.tiny``
+        # floor on each class's site likelihood (a class of likelihood 0
+        # keeps a finite gradient); log sum_c w_c L_c in fp64
+        per_class = pruning.site_log_likelihoods(
             out.p_matrices, self._leaf_partials[i], out.root_freqs,
-            self._pruning_data[i],
-        )
+            self._pruning_data[i], floor=True,
+        )                                                    # [C, patterns]
+        log_w = torch.log(torch.clamp_min(out.class_weights.to(torch.float64), 1e-300))
+        return torch.logsumexp(per_class + log_w[:, None], dim=0)
 
     def site_log_likelihoods(self, params: Params) -> List[torch.Tensor]:
         """Per-pattern log-likelihood vectors, one per partition

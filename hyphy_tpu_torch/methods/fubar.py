@@ -124,11 +124,13 @@ def grid_chunk(gp: GridPruning, n_points: int, device, chunk: Optional[int] = No
     return max(1, min(chunk, n_points, pruning.max_grid_points(gp.schedule)))
 
 
-def grid_pass(gp: GridPruning, grid: torch.Tensor, times: torch.Tensor,
+def grid_pass(gp: GridPruning, grid: torch.Tensor, times,
               chunk: Optional[int] = None) -> torch.Tensor:
     """``[G, patterns]`` site lnL at every grid point with branch scales
     ``times``: the grid in chunks of :func:`grid_chunk` points, each chunk
-    one call of the grid form of the pruning."""
+    one call of the grid form of the pruning.  ``gp`` is any grid pruning
+    whose ``propagators(points, times)`` gives the chunk's ``[n, branches,
+    S, S]`` (FADE's takes its target residue in place of ``times``)."""
     def solver(idx):
         with torch.no_grad():
             p = gp.propagators(grid[idx], times)
@@ -136,8 +138,8 @@ def grid_pass(gp: GridPruning, grid: torch.Tensor, times: torch.Tensor,
                                                         gp.schedule)}
 
     n_points = grid.shape[0]
-    return chunked_site_solve(solver, n_points, gp.point_bytes, times.device,
-                              chunk=grid_chunk(gp, n_points, times.device, chunk))["sll"]
+    return chunked_site_solve(solver, n_points, gp.point_bytes, grid.device,
+                              chunk=grid_chunk(gp, n_points, grid.device, chunk))["sll"]
 
 
 def grid_site_loglik_matrix(

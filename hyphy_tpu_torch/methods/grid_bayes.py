@@ -1,5 +1,5 @@
 """Posterior inference over rate-grid weights with a Dirichlet prior —
-shared by FUBAR and B-STILL (and FADE, not ported yet).
+shared by FUBAR, B-STILL and FADE.
 
 A copy of ``hyphy_tpu/methods/grid_bayes.py`` (numpy only): the same
 ``np.random.Generator`` calls in the same order, so the same inputs and

@@ -23,10 +23,13 @@ from hyphy_tpu_torch.ops import expm as expm_ops
 @dataclasses.dataclass
 class ModelOutput:
     """Everything the pruning engine needs for one partition:
-    ``p_matrices`` ``[n_branches, S, S]`` and ``root_freqs`` ``[S]``."""
+    ``p_matrices`` ``[n_branches, S, S]`` and ``root_freqs`` ``[S]``; with
+    C site-level rate classes, ``p_matrices`` ``[C, n_branches, S, S]`` and
+    their weights ``class_weights`` ``[C]``."""
 
     p_matrices: torch.Tensor
     root_freqs: torch.Tensor
+    class_weights: "torch.Tensor | None" = None
 
 
 def fill_diagonal_from_rows(q: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Codon substitution models: the MG94xREV family.
 
 Counterpart of ``hyphy_tpu/models/codon.py``: ``MG94Base`` with the
-multiple-hit basis matrices, and ``MG94xREVPartitionedOmega`` with its
-``multiple_hits`` option.  ``MG94xREVMultiHit``, ``MG94xREVMultiHitGDD``,
+multiple-hit basis matrices, ``MG94xREVPartitionedOmega`` with its
+``multiple_hits`` option, and FitMultiModel's ``MG94xREVMultiHit`` and
+``MG94xREVMultiHitGDD`` (a site-level omega distribution of K classes).
 ``MG94xREV`` and ``MG94xREVLocal`` are not ported yet.
 
 Q construction (parity-critical, reference ``MG_REV.bf:66-105``): entry
@@ -31,7 +32,7 @@ from hyphy_tpu_torch.models.base import (
     fill_diagonal_from_rows,
 )
 from hyphy_tpu_torch.models.dna import GTR_RATES
-from hyphy_tpu_torch.models.parameters import ParamSpec, Params, Specs
+from hyphy_tpu_torch.models.parameters import ParamSpec, Params, Specs, stick_breaking_weights
 from hyphy_tpu_torch.ops import expm as expm_ops
 
 _PAIR_INDEX = {p: i for i, p in enumerate(GTR_RATES)}
@@ -312,3 +313,153 @@ class MG94xREVPartitionedOmega(MG94Base):
         alpha = self._alphas(params)
         beta = alpha * params["omega"][self._branch_groups_t]
         return self.rate_per_branch(self.combined_basis_matrices(params), alpha, beta)
+
+
+class MG94xREVMultiHit(MG94Base):
+    """MG94xREV with double- (delta) and optionally triple-hit (psi)
+    instantaneous substitutions and free branch rates (reference:
+    ``models/codon/MG_REV_MH.bf``, ``MG_REV_TRIP.bf``; FitMultiModel's
+    model shape).
+
+    Q = alpha_b*(Q1s + d*Q2s + p*Q3s) + beta_b*(Q1n + d*Q2n + p*Q3n),
+    beta_b = alpha_b * omega_{group(b)}; delta/psi are global rates.  The
+    propagators take :meth:`propagators_grouped`'s route: fp64 spectral,
+    fp32 shared-power Taylor (the JAX package: spectral at every dtype).
+    """
+
+    def __init__(
+        self,
+        gc: GeneticCode,
+        corner_freqs: np.ndarray,
+        codon_freqs: np.ndarray,
+        branch_groups: np.ndarray,
+        n_groups: int,
+        triple: bool = False,
+        device=None,
+    ):
+        super().__init__(gc, corner_freqs, codon_freqs, device=device)
+        self.branch_groups = np.asarray(branch_groups, dtype=np.int64)
+        self._branch_groups_t = torch.as_tensor(self.branch_groups, device=self.device)
+        self.n_groups = n_groups
+        self.triple = triple
+
+    def parameter_specs(self, n_branches: int) -> Specs:
+        specs = self.theta_specs()
+        specs["omega"] = ParamSpec(init=0.25, lower=0.0, upper=10000.0, shape=(self.n_groups,))
+        specs["alpha"] = ParamSpec(init=0.15, lower=0.0, upper=10000.0, shape=(n_branches,))
+        # reference rate bounds: delta/psi in [0, 100] (MG_REV_MH.bf)
+        specs["delta"] = ParamSpec(init=0.05, lower=0.0, upper=100.0)
+        if self.triple:
+            specs["psi"] = ParamSpec(init=0.05, lower=0.0, upper=100.0)
+        return specs
+
+    def _combined_bases(self, params: Params):
+        q1s, q1n = self.basis_matrices(params)
+        q2s, q2n = self.multihit_basis_matrices(params, 2)
+        qs = q1s + params["delta"] * q2s
+        qn = q1n + params["delta"] * q2n
+        if self.triple:
+            q3s, q3n = self.multihit_basis_matrices(params, 3)
+            qs = qs + params["psi"] * q3s
+            qn = qn + params["psi"] * q3n
+        return qs, qn
+
+    def build(self, params: Params, n_branches: int) -> ModelOutput:
+        p = self.propagators_grouped(self._combined_bases(params), params["alpha"],
+                                     params["omega"], self.branch_groups)
+        return ModelOutput(p_matrices=p, root_freqs=self.frequencies)
+
+    def branch_lengths(self, params: Params) -> torch.Tensor:
+        alpha = params["alpha"]
+        beta = alpha * params["omega"][self._branch_groups_t]
+        return self.rate_per_branch(self._combined_bases(params), alpha, beta)
+
+
+class MG94xREVMultiHitGDD(MG94xREVMultiHit):
+    """MG94xREV(+MH) with a K-class general-discrete (GDD) site-level
+    omega distribution — FitMultiModel's default model shape
+    (``FitMultiModel.bf:25`` rate_classes = 3; GDD factory at ``:210``).
+
+    Omega classes are free rates with stick-breaking weights; each class
+    is a site-level category (``ModelOutput.class_weights``), i.e. the
+    reference's ``_CategoryVariable`` machinery, not a branch-site
+    mixture.  ``hits`` "None" / "Double" / "Double+Triple" adds the shared
+    2-hit rate ``delta`` (and 3-hit rate ``psi``); ``triple_islands`` adds
+    a separate rate for synonymous 3-hit substitutions
+    (``terms.parameters.triple_hit_rate_syn``).
+
+    ``build`` gives ``[K, branches, S, S]`` propagators, one set per class
+    at the branch rates: fp64 one ``eigh`` per class, fp32 one shared-power
+    Taylor series per class.  The likelihood folds the K sets into K1's
+    node axis (one launch per level for all classes).
+    """
+
+    def __init__(self, gc, corner_freqs, codon_freqs, branch_groups, n_groups,
+                 hits="None", rate_classes=3, triple_islands=False, device=None):
+        triple = hits == "Double+Triple"
+        super().__init__(gc, corner_freqs, codon_freqs, branch_groups, n_groups,
+                         triple=triple, device=device)
+        if rate_classes == 1 and n_groups != 1:
+            raise ValueError("one rate class takes one branch group")
+        self.hits = hits
+        self.rate_classes = rate_classes
+        self.triple_islands = triple_islands and triple
+        # the propagator route: None follows the dtype (fp64 spectral, fp32
+        # Taylor); True or False forces it (the card's checks hold fp64
+        # Taylor card against host, where the spectral route's eigensolvers
+        # part at short branches, ROADMAP 3.5)
+        self.spectral = None
+
+    def parameter_specs(self, n_branches: int) -> Specs:
+        specs = super().parameter_specs(n_branches)
+        if self.hits == "None":
+            del specs["delta"]
+        k = self.rate_classes
+        if k > 1:
+            del specs["omega"]
+            specs["omega_c"] = ParamSpec(init=0.25, lower=0.0, upper=10000.0, shape=(k,))
+            specs["omega_w"] = ParamSpec(init=0.5, lower=1e-6, upper=1.0 - 1e-6,
+                                         shape=(k - 1,))
+        if self.triple_islands:
+            specs["psi_syn"] = ParamSpec(init=0.05, lower=0.0, upper=100.0)
+        return specs
+
+    def _combined_bases(self, params: Params):
+        if self.hits == "None":
+            return self.basis_matrices(params)
+        if not self.triple_islands:
+            return super()._combined_bases(params)
+        q1s, q1n = self.basis_matrices(params)
+        q2s, q2n = self.multihit_basis_matrices(params, 2)
+        q3s, q3n = self.multihit_basis_matrices(params, 3)
+        qs = q1s + params["delta"] * q2s + params["psi_syn"] * q3s
+        qn = q1n + params["delta"] * q2n + params["psi"] * q3n
+        return qs, qn
+
+    def class_distribution(self, params: Params):
+        """(omegas ``[K]``, weights ``[K]``)."""
+        if self.rate_classes == 1:
+            omega = params["omega"].reshape(1)
+            return omega, torch.ones((1,), dtype=omega.dtype, device=omega.device)
+        return params["omega_c"], stick_breaking_weights(params["omega_w"])
+
+    def build(self, params: Params, n_branches: int) -> ModelOutput:
+        omegas, weights = self.class_distribution(params)
+        qs, qn = self._combined_bases(params)
+        m = fill_diagonal_from_rows(qs[None] + omegas[:, None, None] * qn[None])   # [K,S,S]
+        alpha = params["alpha"]
+        if m.dtype == torch.float64 if self.spectral is None else self.spectral:
+            left, lam, right = expm_ops.reversible_spectral(m, self.frequencies)
+            p = expm_ops.spectral_propagators(left[:, None], lam[:, None], right[:, None],
+                                              alpha[None, :])
+        else:
+            p = torch.stack([expm_ops.shared_taylor_propagators(mk, alpha) for mk in m])
+        return ModelOutput(p_matrices=p, root_freqs=self.frequencies, class_weights=weights)
+
+    def branch_lengths(self, params: Params) -> torch.Tensor:
+        omegas, weights = self.class_distribution(params)
+        qs, qn = self._combined_bases(params)
+        pi = self.frequencies.to(qs.dtype)
+        rs = qs.sum(-1) @ pi
+        rn = qn.sum(-1) @ pi
+        return params["alpha"] * (rs + torch.sum(omegas * weights) * rn) / 3.0

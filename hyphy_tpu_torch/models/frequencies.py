@@ -48,6 +48,11 @@ def empirical_nucleotide(filt) -> np.ndarray:
     return _combined_harvest(filt, 1, 1, False)[:, 0]
 
 
+def empirical_character(filt: DataFilter) -> np.ndarray:
+    """Pooled single-character frequencies (the protein models' +F)."""
+    return filt.harvest_frequencies(1, 1, False)[:, 0]
+
+
 def _codon_from_corners(corners: np.ndarray, gc: GeneticCode) -> np.ndarray:
     """pi_c = n0[c0] n1[c1] n2[c2] / (1 - sum_stops n0 n1 n2)
     (reference: ``codon_from_nuc``, frequencies.bf)."""

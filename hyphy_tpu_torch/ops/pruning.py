@@ -12,7 +12,7 @@ same schedule: ``single_site_log_likelihood_taylor`` (with its
 ``single_site_log_likelihood_spectral_mixture``.  The padded ``lax.scan``
 variant (``schedule_pad``) is not ported yet; ``mixture_site_log_likelihoods``
 (one pruning per rate class) is the grid form over the classes, as
-``models/bsrel.py`` calls it.
+``models/bsrel.py`` and ``likelihood.py``'s class mixture call it.
 
 Numerics kept from the reference, which make fp32 usable on deep trees:
 the identity propagator at the scratch index, max-renormalisation per
@@ -276,7 +276,10 @@ def site_log_likelihoods(
         cc = gathered[0] if len(gathered) == 1 else torch.cat(gathered, dim=1)
         if plan.perm is not None:
             cc = cc.index_select(1, plan.perm)
-        cc = cc.reshape(n_grid * w, k, patterns, states)
+        # the leaves are shared by every grid point (a stride-0 expand), and
+        # a level of one node whose children are all leaves reshapes to a
+        # view of that expand: K1 takes contiguous inputs
+        cc = cc.reshape(n_grid * w, k, patterns, states).contiguous()
         cp = p_all[:, plan.child_branch].reshape(n_grid * w, k, states, states)
         if k <= _CHUNK:
             prod = level_products(cc, cp).reshape(n_grid, w, patterns, states)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither ``jax`` nor ``hyphy_tpu``, and
 its entry points do not fall back to the CPU when CUDA is missing."""
 
+import os
 import pathlib
 import re
 import subprocess
@@ -27,8 +28,8 @@ print("LOADED", sorted(m for m in sys.modules if m.startswith("hyphy_tpu_torch."
 
 # modules added with FEL's options and CHARSET partitions, with SLAC, MEME
 # and simulate, with FUBAR, B-STILL and the contrast methods, with PRIME and
-# the BUSTED family, and with RELAX and aBSREL, which the walk above must
-# reach
+# the BUSTED family, with RELAX and aBSREL, and with the protein models,
+# LEISR, FADE and FitMultiModel, which the walk above must reach
 _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batched",
                 "hyphy_tpu_torch.methods.fel", "hyphy_tpu_torch.io.json_out",
                 "hyphy_tpu_torch.ops.ancestral", "hyphy_tpu_torch.methods.counting",
@@ -41,7 +42,9 @@ _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batc
                 "hyphy_tpu_torch.methods.error_filter", "hyphy_tpu_torch.methods.clade_support",
                 "hyphy_tpu_torch.models.bsrel", "hyphy_tpu_torch.ops.hmm",
                 "hyphy_tpu_torch.io.serialize", "hyphy_tpu_torch.methods.relax",
-                "hyphy_tpu_torch.methods.absrel"]
+                "hyphy_tpu_torch.methods.absrel", "hyphy_tpu_torch.models.protein",
+                "hyphy_tpu_torch.methods.leisr", "hyphy_tpu_torch.methods.fade",
+                "hyphy_tpu_torch.methods.fmm"]
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -254,3 +257,101 @@ def test_relax_and_absrel_entry_points_raise_without_cuda(monkeypatch, tmp_path,
     monkeypatch.setattr(settings, "device", "cpu")
     assert cli.main(["warmup"] + argv) == 0
     assert "fits" in json.loads(out.read_text())
+
+
+_PROTEIN_RUNS = """
+import builtins, json, sys
+import torch
+torch.set_num_threads(2)           # beside the other test workers
+sys.modules["jax"] = None
+sys.modules["hyphy_tpu"] = None    # nor the JAX package, its data files included
+opened = []
+_open = builtins.open
+def spy(path, *args, **kwargs):
+    opened.append(str(path))
+    return _open(path, *args, **kwargs)
+builtins.open = spy
+from hyphy_tpu_torch import cli
+from hyphy_tpu_torch.config import settings
+settings.device = "cpu"
+d = sys.argv[1]
+for argv in (["leisr", "--alignment", d + "/p.fasta", "--tree", d + "/p.nwk", "--type", "protein",
+              "--model", "LG"],
+             ["leisr", "--alignment", d + "/c.fasta", "--tree", d + "/c.nwk"],
+             ["fade", "--alignment", d + "/p.fasta", "--tree", d + "/p.nwk", "--grid", "5"],
+             ["fmm", "--alignment", d + "/c.fasta", "--tree", d + "/c.nwk"]):
+    out = d + "/" + argv[0] + ".json"
+    assert cli.main(["warmup"] + argv + ["--output", out]) == 0
+    print(argv[0], sorted(json.load(_open(out))))
+matrices = [p for p in opened if "resources" in p]
+print("MATRICES", matrices)
+assert matrices and all("hyphy_tpu_torch/resources/protein/" in p for p in matrices), matrices
+leaked = sorted(m for m in sys.modules if m == "hyphy_tpu" and sys.modules[m] is not None)
+print("LEAKED", leaked)
+"""
+
+
+def test_protein_and_fmm_commands_run_without_jax(tmp_path):
+    """``leisr`` (protein and nucleotide), ``fade`` and ``fmm`` through the
+    port's CLI under ``warmup`` on the CPU in a process where ``jax`` and
+    the JAX package cannot be imported; the protein matrices are read from
+    the port's own ``resources/``."""
+    from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
+
+    amino = "ACDEFGHIKLMNPQRSTVWY"
+    rng = np.random.default_rng(4)
+    names = [f"t{i}" for i in range(5)]
+    seqs = ["".join(amino[k] for k in rng.integers(0, 20, size=12)) for _ in names]
+    (tmp_path / "p.fasta").write_text("".join(f">{n}\n{s}\n" for n, s in zip(names, seqs)))
+    (tmp_path / "p.nwk").write_text(random_tree_newick(5, seed=4))
+    aln = synthetic_codon_alignment(5, 6, seed=4)
+    (tmp_path / "c.fasta").write_text(
+        "".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
+    (tmp_path / "c.nwk").write_text(random_tree_newick(5, seed=4))
+    out = subprocess.run(
+        [sys.executable, "-c", _PROTEIN_RUNS, str(tmp_path)], cwd=REPO, capture_output=True,
+        text=True, timeout=600,
+        env={**os.environ, "HYPHY_TPU_PROGRESS": "0", "OMP_NUM_THREADS": "2"},
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LEAKED []" in out.stdout
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines() if " [" in line)
+    assert "'MLE'" in lines["leisr"] and "'MLE'" in lines["fade"]
+    assert "'site annotations'" in lines["fade"] and "'test results'" in lines["fmm"]
+    assert "LG.json" in lines["MATRICES"] and "WAG.json" in lines["MATRICES"]
+
+
+@pytest.mark.parametrize("method, flags", [
+    ("leisr", ["--type", "protein", "--model", "WAG"]),
+    ("fade", ["--grid", "5"]),
+    ("fmm", []),
+])
+def test_protein_and_fmm_entry_points_raise_without_cuda(monkeypatch, tmp_path, method, flags):
+    """LEISR, FADE and FitMultiModel through the CLI, plain and under
+    ``warmup``, and as functions: they raise without CUDA."""
+    import importlib
+
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
+
+    module = importlib.import_module(f"hyphy_tpu_torch.methods.{method}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(settings, "device", "cuda")
+    if method == "fmm":
+        aln = synthetic_codon_alignment(4, 5, seed=1)
+        names, seqs = aln.names, aln.sequences
+    else:
+        names = [f"t{i}" for i in range(4)]
+        seqs = ["ACDEFGHIKL", "ACDEFGHIKW", "ACDQFGHIKL", "YCDEFGHIKL"]
+    fasta = tmp_path / "a.fasta"
+    fasta.write_text("".join(f">{n}\n{s}\n" for n, s in zip(names, seqs)))
+    newick = random_tree_newick(4, seed=1)
+    out = tmp_path / "a.json"
+    argv = [method, "--alignment", str(fasta), "--tree", newick, "--output", str(out)] + flags
+    for prefix in ([], ["warmup"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(prefix + argv)
+        assert not out.exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.run(str(fasta), tree=newick)

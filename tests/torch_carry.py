@@ -228,3 +228,54 @@ def contrast_alignment(n_taxa, n_codons, seed, clade_sizes, labels, planted,
     states[:, list(planted)] = simulate_states(tree, selected, pi, len(planted), rng)
     names, seqs = states_to_alignment(states, tree, "codon", gc)
     return names, seqs, labelled_newick(tree, lengths, node_labels)
+
+
+def fade_generator(q_unit, pi, target, rate, bias):
+    """FADE's biased generator (``fade.rate.modifier``, FADE.bf:359-377) of
+    the unit-rate generator ``q_unit`` with stationary ``pi``, toward residue
+    index ``target``: numpy, for simulating a planted block."""
+    toward, away = bias / -np.expm1(-bias), bias / np.expm1(bias)
+    off = q_unit - np.diag(np.diag(q_unit))
+    mult = np.ones_like(off)
+    mult[:, target] = toward
+    mult[target, :] = away
+    mult[target, target] = 1.0
+    q = rate * off * mult
+    return q - np.diag(q.sum(axis=1))
+
+
+def protein_alignment(n_taxa, n_sites, seed, model="WAG", mean_branch=0.2,
+                      planted=(), clade=None, target="K", rate=1.0, bias=10.0):
+    """A protein alignment simulated with ``utils/simulate.py::
+    simulate_states`` along ``random_tree_newick(n_taxa, seed, mean_branch)``
+    under the empirical ``model`` at unit mean rate (``scipy.linalg.expm``),
+    except that at the ``planted`` sites the branches of ``clade`` (node ids)
+    evolve under FADE's biased generator toward ``target`` at ``rate`` and
+    ``bias``.  Returns (names, sequences, newick)."""
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch.data.genetic_code import AMINO_ACIDS
+    from hyphy_tpu_torch.models.protein import load_empirical, rate_matrix_from_pairs
+
+    newick = random_tree_newick(n_taxa, seed=seed, mean_branch=mean_branch)
+    tree = Tree.from_newick(newick)
+    data = load_empirical(model)
+    pi = np.asarray(data["frequencies"], dtype=np.float64)
+    pi = pi / pi.sum()
+    q = rate_matrix_from_pairs(data["rates"]) * pi[None, :]
+    q -= np.diag(q.sum(axis=1))
+    q /= -(pi * np.diag(q)).sum()
+    times = np.asarray(tree.input_lengths[:-1])
+    p = np.stack([sla.expm(q * t) for t in times])
+    rng = np.random.default_rng(seed)
+    states = simulate_states(tree, p, pi, n_sites, rng)
+    planted = list(planted)
+    if planted:
+        qb = fade_generator(q, pi, AMINO_ACIDS.index(target), rate, bias)
+        pb = p.copy()
+        for nd in clade:
+            if nd != tree.root:
+                pb[nd] = sla.expm(qb * times[nd])
+        states[:, planted] = simulate_states(tree, pb, pi, len(planted), rng)
+    names, seqs = states_to_alignment(states, tree, "protein")
+    return names, seqs, newick
