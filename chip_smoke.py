@@ -37,7 +37,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      and the batched fp64 eigendecomposition alone, timed by CUDA events,
      the host clock and the profiler, beside their bounds;
   7. FEL with CHARSET partitions and multiple hits at full width: phase
-     4's alignment written as a NEXUS of 4 CHARSETs of 512 codons (one
+     4's alignment written as a NEXUS of 2 CHARSETs of 1024 codons (one
      TREE each), ``[warmup] fel --multiple-hits Double+Triple
      --site-multihit Estimate`` through the CLI in-process — joint GTR and
      joint multi-hit MG94 fits, per-site fits with per-site 2H/3H rates —
@@ -52,11 +52,11 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      evaluation is host launch time): seconds of the CI and of the
      bootstrap apart, LB <= MLE <= UB, bootstrap p in multiples of 1/11;
   (after phase 6) the Nelder-Mead's fused four-probe body against its
-     sequential probes on phase 6's objective at 128 and 512 sites:
+     sequential probes on phase 6's objective at 128 sites:
      ms and launches per iteration, peak memory, results equal bit for bit;
   9. SLAC at full width: ``simulated_codon_alignment(1000, 2048, seed=11)``
      with omega = 5 at nine planted codons, through ``warmup slac
-     --samples 10`` in-process: seconds per stage (load, GTR, MG94, joint
+     --samples 5`` in-process: seconds per stage (load, GTR, MG94, joint
      reconstruction, counts, sampling), peak memory, K1 launches; the
      card's fp64 joint states against the host's on identical inputs
      (equal), root lnL within 1e-9 relative, fp32's share of equal states;
@@ -69,7 +69,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      chunks, K1 launches, one batched mixture evaluation timed and
      profiled; the mixture site lnL card vs host (fp64 Taylor, 1e-9) and
      fp32 vs fp64 (0.03); the planted codons at p <= 0.1; the EBFs of the
-     sites one chunk holds, and of 64 sites, held bit for bit between the
+     sites one chunk holds, and of 16 sites, held bit for bit between the
      chunks free memory gives and forced chunks of 997 items;
  12. FUBAR at full width on phase 9's alignment, ``warmup fubar --grid
      20``: seconds per stage (load, GTR, the two grid passes, the
@@ -89,14 +89,14 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      per-site lnL card vs host (fp64
      Taylor, 64 sites) and fp32 vs fp64, the substitution counts card vs
      host (equal);
- 15. contrast-MEME on that alignment cut to 256 codons, ``warmup
-     contrast-meme ... --permutations 3``: seconds per stage (alternative,
+ 15. contrast-MEME on that alignment cut to 128 codons, ``warmup
+     contrast-meme ... --permutations 1``: seconds per stage (alternative,
      null, pairwise, permutations), the solves' items and chunks, K1
      launches; the mixture site lnL with per-item permuted set maps card vs
-     host (fp64 Taylor, 64 sites), permutation p in multiples of 1/4;
- 16. ``warmup meme --resample 3`` on phase 9's alignment cut to 64 codons,
+     host (fp64 Taylor, 64 sites), permutation p in multiples of 1/2;
+ 16. ``warmup meme --resample 1`` on phase 9's alignment cut to 64 codons,
      with the fused probes: the simulation's and the refits' seconds, p in
-     multiples of 1/4, the card's fp64 family propagators of two sites
+     multiples of 1/2, the card's fp64 family propagators of two sites
      against ``scipy.linalg.expm`` on three branches (1e-10).
 
  17. PRIME at 1000 taxa on phase 9's alignment cut to 512 codons,
@@ -148,7 +148,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      stage, K1 launches, ms on both forms of the fp32 Taylor route; df = 2,
      the two K, the group objective card vs host (fp64 Taylor, 64 patterns,
      1e-9 relative);
- 23. aBSREL on ``simulated_codon_alignment(64, 1024, seed=11)``, ``warmup
+ 23. aBSREL on ``simulated_codon_alignment(48, 1024, seed=11)``, ``warmup
      absrel --srv Yes``: seconds per stage (baseline, step-up with its fits
      and classes added, polish, branch nulls), ms per value and
      value+gradient, K1 launches, peak memory; two branches' nulls, with
@@ -186,9 +186,26 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      lnL at the fitted 3H point card vs host on 64 codons (fp64 Taylor 1e-9
      relative, spectral 1e-6), fp32 vs fp64 per pattern (0.03), class
      weights summing to 1 (1e-6), every lnL, LRT and evidence ratio finite,
-     the JSON's keys.
+     the JSON's keys;
+ 27. BGM on phase 9's alignment cut to 128 codons at 1000 taxa, ``warmup
+     bgm`` at its defaults (100000 order-MCMC steps): seconds per stage (the
+     GTR and MG94 fits and K8 on the card; the families and the order-MCMC
+     on the host), K1 launches, peak memory; the substitution map from the
+     card's fp64 joint states equal to the one from the host's fp64 K8 on
+     the same propagators, the cells fp32 K8 changes, the table's
+     P[1->2], P[2->1] in [0, 1] with sum at most 1 (+1e-12);
+ 28. GARD through ``gard.run`` under ``warmup`` (L-BFGS capped at 3
+     iterations) on 24 taxa x 1200 sites, two halves simulated under GTR
+     along two different trees, capped at 24 single-breakpoint candidates,
+     population 8, 3 stagnant generations, 3 breakpoints: seconds of TN93
+     and NJ on the host, and per candidate fit (K1 at 4 states) its
+     seconds, evaluations and K1 launches; a breakpoint within 30 sites of
+     the planted one with c-AIC below the baseline's; the run resumed from
+     its checkpoint fits only the baseline and ends alike; the baseline and
+     the best model fitted to convergence in fp32 and in fp64, the best
+     below the baseline in both, their c-AIC differences printed.
 
-``--precision-check`` runs phases 1-3 and then, in place of phases 4-26,
+``--precision-check`` runs phases 1-3 and then, in place of phases 4-28,
 FEL's per-site stage on phase 8's input at one capped global fit, run to
 convergence in fp32 and in fp64: the same p <= 0.1 set, and alpha and beta
 within the stated tolerance at all but 5% of the sites.  ``--busted-check``
@@ -213,7 +230,7 @@ aBSREL uncapped in fp32 on the episodic control along 32 taxa, 512 codons
 reported.
 
 K1's ``launches`` on the kernels line sum the phases that drive a method
-(4, 7-26, or the precision, BUSTED or RELAX check), each counted from 0
+(4, 7-28, or the precision, BUSTED or RELAX check), each counted from 0
 around its run.  It
 imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
@@ -291,28 +308,32 @@ SITE_FP32_BOUND = 0.03     # |d site lnL|, fp32 vs fp64 Taylor (7.3e-3 on the H1
 # the profiler holds one event per launch: the looped fp64 eigh launches
 # ~150 kernels per matrix, so the spectral route and eigh are profiled on
 # this many sites (events and the host clock time all of them)
-SITE_PROFILE_N = 256
-# phase 7: bench.py's alignment as 4 CHARSETs of 512 codons; per-site
-# (alpha, beta, delta, psi) points of the card-vs-host multi-hit check
-N_PARTS, PART_CODONS = 4, 512
+SITE_PROFILE_N = 64
+# phase 7: bench.py's alignment as 2 CHARSETs of 1024 codons (4 of 512 until
+# phases 27-28 needed the room: each partition adds its own launch-bound
+# per-site fits); per-site (alpha, beta, delta, psi) points of the
+# card-vs-host multi-hit check
+N_PARTS, PART_CODONS = 2, 1024
 MH_SITE_POINTS = [(1.0, 1.0, 0.05, 0.05), (0.01, 0.1, 1.0, 1.0), (10.0, 50.0, 10.0, 5.0)]
 # phase 8: taxa and codons of the CI / bootstrap run, and bootstrap
 # replicates: the CI's evaluations are a fixed number of bisection and
 # Nelder-Mead steps whose launches follow the tree's levels, so the run is
 # cut in taxa (random_tree_newick(CI_TAXA, SEED)) for the 900 s budget
 CI_TAXA, CI_CODONS, N_RESAMPLE = 128, 128, 10
-# the fused Nelder-Mead probes: sites, and iterations timed
-FUSED_SITES, FUSED_ITERATIONS = [128, 512], 6
+# the fused Nelder-Mead probes: sites (512 cut for phases 27-28), and
+# iterations timed
+FUSED_SITES, FUSED_ITERATIONS = [128], 6
 # phases 9-11: an alignment simulated along random_tree_newick(N_TAXA, SEED)
 # with omega = PLANTED_OMEGA at these codons (0.3 elsewhere)
 PLANTED_SITES, PLANTED_OMEGA = [37, 101, 190, 263, 333, 402, 475, 1100, 1700], 5.0
 # phase 9: SLAC's ancestral samples; patterns held card vs host; root lnL bound
-SLAC_SAMPLES, SLAC_HOST_PATTERNS, SLAC_LNL_REL_BOUND = 10, 512, 1e-9
+# (samples cut from 10 for phases 27-28's room in the chip budget)
+SLAC_SAMPLES, SLAC_HOST_PATTERNS, SLAC_LNL_REL_BOUND = 5, 512, 1e-9
 # phase 11: MEME's codons (the EBF's items grow with codons x tested
 # branches: ~1.02 M at 512; cut to 128 for phases 21-23's room in the
-# chip budget, to 64 for phases 24-26's); sites and forced items per chunk
-# of the split
-MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 64, 64, 997
+# chip budget, to 64 for phases 24-26's); sites (64 until phases 27-28)
+# and forced items per chunk of the split
+MEME_CODONS, SPLIT_SITES, SPLIT_CHUNK = 64, 16, 997
 # phase 12: FUBAR's grid (points per axis); grid points held fp32 vs fp64
 # (alpha > 0 and beta > 0: where alpha or beta is 0 the fp64 spectral route
 # gives round-off for unreachable codons, ROADMAP 3.5) and folded vs one by
@@ -330,11 +351,12 @@ CONTRAST_CLADES, CONTRAST_LABELS = [250, 250], ["FG", "REF"]
 # phase 14: contrast-FEL's codons (cut for the chip budget; the per-site
 # route with G = 3 stays at 1000 taxa)
 CFEL_CODONS = 512
-# phase 15: contrast-MEME's codons and permutations
-CMEME_CODONS, CMEME_PERMUTATIONS = 256, 3
-# phase 16: MEME --resample's codons and replicates; sites and branches of
-# the propagator check against scipy
-RESAMPLE_CODONS, MEME_RESAMPLE = 64, 3
+# phase 15: contrast-MEME's codons and permutations (cut from 256 and 3 for
+# phases 27-28's room in the chip budget)
+CMEME_CODONS, CMEME_PERMUTATIONS = 128, 1
+# phase 16: MEME --resample's codons and replicates (cut from 3 for phases
+# 27-28); sites and branches of the propagator check against scipy
+RESAMPLE_CODONS, MEME_RESAMPLE = 64, 1
 RESAMPLE_CHECK_SITES, RESAMPLE_CHECK_BRANCHES = 2, 3
 RESAMPLE_EXPM_BOUND = 1e-10
 # phase 17: PRIME's codons (cut for the chip budget); its per-site
@@ -370,8 +392,9 @@ RELAX_POWER_BOUND = 1e-6
 RELAX_GROUP_CODONS = 512
 # phase 23: aBSREL's taxa and codons: the step-up fits every branch at
 # least once, one capped fit each, so 1000 taxa (1998 branches) would not
-# fit the run; codons cut to 1024 for the 900 s budget
-ABSREL_TAXA, ABSREL_CODONS = 64, 1024
+# fit the run; codons cut to 1024 and taxa to 48 (from 64) for the 900 s
+# budget
+ABSREL_TAXA, ABSREL_CODONS = 48, 1024
 # --relax-check: RELAX --models Minimal uncapped on the contrast alignment
 # cut to RELAX_CHECK_CODONS codons in fp32 and fp64; aBSREL uncapped in fp32
 # on the episodic alignment (below) along ABSREL_CHECK_TAXA taxa, of
@@ -405,6 +428,24 @@ FMM_HOST_SITES, FMM_HOST_REL_BOUND, FMM_SPECTRAL_HOST_REL_BOUND = 64, 1e-9, 1e-6
 FMM_WEIGHT_SUM_BOUND = 1e-6
 FMM_JSON_KEYS = ["Evidence Ratios", "Site Log Likelihood", "analysis", "data partitions",
                  "fits", "input", "test results", "tested", "timers"]
+# phase 27: BGM's codons of the planted alignment (BGM runs on single genes;
+# its host families grow with the square of the sites that carry a
+# substitution), and the slack on P[1->2] + P[2->1] <= 1 (one order allows
+# one direction only)
+BGM_CODONS, BGM_PROB_SLACK = 128, 1e-12
+# phase 28: GARD's input, two halves of GARD_HALF sites simulated under GTR
+# (GARD_RATES: AC, AG, AT, CG, CT, GT; GARD_FREQS: A, C, G, T) along
+# random_tree_newick(GARD_TAXA, seed) for each seed of GARD_TREE_SEEDS; the
+# caps of the search (at most GARD_CANDIDATES single-breakpoint candidates,
+# through the candidate stride); the best model's breakpoint within
+# GARD_BREAKPOINT_SLACK sites of the planted one; 24 taxa and 24 candidates,
+# cut from 32 and 32 (the 32-taxon run took 90.5 s of a 45 s target, the
+# 24-taxon one 72.1 s, PERF.md); at 24 candidates both neighbours of the
+# planted site lie within the slack (23 and 26 sites), at 16 only one does
+GARD_TAXA, GARD_HALF, GARD_TREE_SEEDS = 24, 600, (SEED, SEED + 1)
+GARD_RATES, GARD_FREQS = (1.0, 4.0, 1.0, 1.0, 4.0, 1.0), (0.3, 0.2, 0.25, 0.25)
+GARD_CANDIDATES, GARD_POPULATION, GARD_STAGNANT, GARD_MAX_BREAKPOINTS = 24, 8, 3, 3
+GARD_BREAKPOINT_SLACK = 30
 # --busted-check: BUSTED uncapped in fp32 and fp64 on three inputs, each
 # fit's lnL finite and below 0 and the unconstrained lnL no lower than the
 # constrained one less ALT_NULL_SLACK (the refit from the constrained MLE
@@ -1108,7 +1149,7 @@ def phase_sites(torch, data, mgp) -> dict:
     small = _site_args(torch, min(SITE_PROFILE_N, n_sites), pt, n_groups, DEVICE)
     for name, dtype, spectral, reps in (("taylor_fp32", torch.float32, False, 5),
                                         ("taylor_fp64", torch.float64, False, 3),
-                                        ("spectral_fp64", torch.float64, True, 2)):
+                                        ("spectral_fp64", torch.float64, True, 1)):
         fn = objective(mgp, dtype, spectral)
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -1135,7 +1176,7 @@ def phase_sites(torch, data, mgp) -> dict:
                                     + args[2][:, 0, None, None] * q_non)
         sym = m * torch.sqrt(mgp.model.frequencies)[:, None] / torch.sqrt(mgp.model.frequencies)
         sym = 0.5 * (sym + sym.transpose(-1, -2))
-        row = _event_and_wall_ms(torch, lambda: torch.linalg.eigh(sym), 2)
+        row = _event_and_wall_ms(torch, lambda: torch.linalg.eigh(sym), 1)
         head = sym[: SITE_PROFILE_N]
         row["profile"] = prof = profile_ms(
             torch, lambda: torch.linalg.eigh(head),
@@ -1502,7 +1543,7 @@ def phase_options(torch, tmp: str) -> dict:
 def phase_fused_probes(torch, data, mgp) -> dict:
     """The Nelder-Mead's fused four-probe body against its three
     sequential probes on phase 6's objective (fp32 Taylor, FEL's
-    alternative at phase 4's MG94 fit) at 128, 512 and 2048 sites: ms per
+    alternative at phase 4's MG94 fit) at FUSED_SITES sites: ms per
     iteration, kernel launches per iteration, peak memory; the two results
     held equal bit for bit."""
     from hyphy_tpu_torch.methods import fel
@@ -4209,6 +4250,284 @@ def phase_fmm(torch, fasta: str, tree_path: str, tmp: str) -> dict:
     return res
 
 
+def phase_bgm(torch, aln, tree_path: str, tmp: str) -> dict:
+    """BGM on the planted alignment cut to BGM_CODONS codons at full taxa,
+    ``warmup bgm`` at its defaults (100000 steps, 10000 burn-in, 100
+    samples, one parent, min-subs 1), in-process: seconds per stage (the
+    fits and K8 on the card, the families and the order-MCMC on the host),
+    K1 launches, peak memory; the substitution map from the card's fp64
+    joint states equal to the one from the host's fp64 K8 on the same
+    propagators, the cells where the card's fp32 K8 gives another map; the
+    table's P[1->2], P[2->1] in [0, 1] with sum at most 1."""
+    import numpy as np
+
+    from hyphy_tpu_torch.methods import bgm, common, slac
+    from hyphy_tpu_torch.ops import ancestral, pruning
+
+    fasta = _cut_fasta(aln, os.path.join(tmp, "bgm.fasta"), BGM_CODONS)
+    out_json = os.path.join(tmp, "planted.BGM.json")
+    argv = ["warmup", "bgm", "--alignment", fasta, "--tree", tree_path, "--output", out_json]
+    clock, res = _run_cli(torch, argv, [
+        (common, "load_codon_data", "load"),
+        (common, "fit_gtr", "gtr"),
+        (common, "fit_partitioned_mg94", "mg94"),
+        (ancestral, "joint_reconstruct", "joint_reconstruction"),
+        (bgm, "substitution_counts", "substitution_map"),
+        (bgm.DiscreteBGM, "__init__", "families"),
+        (bgm.DiscreteBGM, "order_mcmc", "order_mcmc"),
+    ])
+    res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
+    res["stages_s"] = dict(clock.seconds)
+    with open(out_json) as fh:
+        result = json.load(fh)
+    check("error" not in result, f"BGM: {result.get('error')}")
+    rows = np.asarray(result["MLE"]["content"]["0"], dtype=np.float64)
+    counts, sites, _ = clock.last["substitution_map"][1]
+    n = counts.shape[1]
+    check(rows.shape == (n * (n - 1) // 2, 8), f"BGM table of shape {rows.shape} for {n} sites")
+    p12, p21, either = rows[:, 2], rows[:, 3], rows[:, 4]
+    res["sites"], res["branches"], res["pairs"] = int(n), int(counts.shape[0]), int(rows.shape[0])
+    res["substitutions"] = int(counts.sum())
+    res["p_max"] = float(either.max())
+    res["pairs_p_ge_0.5"] = int((either >= 0.5).sum())
+    res["trace"] = [min(result["trace"]), max(result["trace"]), len(result["trace"])]
+    check(bool(((p12 >= 0) & (p12 <= 1) & (p21 >= 0) & (p21 <= 1)).all()),
+          "BGM P[1->2] or P[2->1] outside [0, 1]")
+    check(bool((p12 + p21 <= 1 + BGM_PROB_SLACK).all()), "BGM P[1->2] + P[2->1] above 1")
+    check(bool(np.allclose(either, p12 + p21, rtol=0, atol=1e-12)), "BGM P[1<->2] is not the sum")
+    check(len(result["trace"]) == 100 and bool(np.isfinite(result["trace"]).all()),
+          "BGM score trace")
+
+    # the map from the card's fp64 states against the host's fp64 K8 on the
+    # same propagators and leaf partials, and the cells fp32 K8 moves
+    data = clock.last["load"][1]
+    filt, tree = data.codon_filter, data.tree
+    aa = np.asarray(data.genetic_code.sense_amino_acids)
+    leaves = slac._leaf_state_coding(filt)
+
+    def binary_map(internal):
+        states = np.concatenate([leaves, internal.cpu().numpy()], axis=0)[:, filt.duplicate_map]
+        states = np.where(states < 0, -1, states)
+        return bgm.substitution_counts(states, tree.parent, data.tested_branches,
+                                       amino_of_state=aa, min_subs=0)[0]
+
+    (p_mat, lp, freqs, schedule), joint = clock.last["joint_reconstruction"]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        host = ancestral.joint_reconstruct(p_mat.cpu(), lp.cpu(), freqs.cpu(),
+                                           pruning.build_pruning_data(tree, "cpu"))
+        res["host_joint_s"] = time.perf_counter() - t0
+        f32 = ancestral.joint_reconstruct(p_mat.float(), lp.float(), freqs.float(), schedule)
+        torch.cuda.synchronize()
+    card_map, host_map, f32_map = (binary_map(j.internal_states) for j in (joint, host, f32))
+    res["map_cells"] = int(card_map.size)
+    res["fp64_map_card_vs_host_equal"] = bool(np.array_equal(card_map, host_map))
+    res["fp64_states_card_vs_host_equal"] = bool(torch.equal(joint.internal_states.cpu(),
+                                                             host.internal_states))
+    res["fp32_map_cells_differing"] = int((f32_map != card_map).sum())
+    res["fp32_map_sites_differing"] = int((f32_map != card_map).any(axis=0).sum())
+    res["run_map_equal"] = bool(np.array_equal(card_map[:, sites], counts))
+    log(f"[bgm] {res['command']}: {res['total_s']:.2f} s; stages, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+        + f"; K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB")
+    log(f"[bgm] {n} sites with >= 1 non-synonymous substitution over {res['branches']} "
+        f"branches ({res['substitutions']} substitutions), {res['pairs']} pairs, max P[1<->2] "
+        f"{res['p_max']:.4f}, {res['pairs_p_ge_0.5']} pairs at >= 0.5; score trace "
+        f"{res['trace']}")
+    log(f"[bgm] substitution map ({res['map_cells']} branch x site cells): fp64 card vs host K8 "
+        f"equal {res['fp64_map_card_vs_host_equal']} (states equal "
+        f"{res['fp64_states_card_vs_host_equal']}; host K8 {res['host_joint_s']:.2f} s); fp32 K8 "
+        f"on the card moves {res['fp32_map_cells_differing']} cells at "
+        f"{res['fp32_map_sites_differing']} sites")
+    check(res["fp64_map_card_vs_host_equal"], "BGM fp64 substitution map: card differs from host")
+    check(res["run_map_equal"], "BGM: the run's map differs from its joint states' map")
+    check(res["level_products_launches"] > 0, "BGM launched no level_products kernel")
+    return res
+
+
+def _recombinant_alignment(tmp: str):
+    """GARD's input: two halves of GARD_HALF sites, each simulated under GTR
+    (``utils/simulate.py``) along its own ``random_tree_newick(GARD_TAXA,
+    seed)``, joined per taxon: one breakpoint after site GARD_HALF."""
+    import numpy as np
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch.tree.topology import Tree
+    from hyphy_tpu_torch.utils.simulate import simulate_states, states_to_alignment
+    from hyphy_tpu_torch.utils.synth import random_tree_newick
+
+    pi = np.asarray(GARD_FREQS)
+    q = np.zeros((4, 4))
+    for r, (i, j) in zip(GARD_RATES, [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]):
+        q[i, j], q[j, i] = r * pi[j], r * pi[i]
+    np.fill_diagonal(q, -q.sum(axis=1))
+    q /= -(pi * np.diag(q)).sum()
+    rng = np.random.default_rng(SEED)
+    seqs = {}
+    for tree_seed in GARD_TREE_SEEDS:
+        tree = Tree.from_newick(random_tree_newick(GARD_TAXA, seed=tree_seed))
+        lengths = np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6)
+        p = np.stack([sla.expm(q * t) for t in lengths])
+        names, part = states_to_alignment(simulate_states(tree, p, pi, GARD_HALF, rng), tree,
+                                          "nucleotide")
+        for name, s in zip(names, part):
+            seqs[name] = seqs.get(name, "") + s
+    names = sorted(seqs, key=lambda name: int(name[1:]))
+    fasta = os.path.join(tmp, "recombinant.fasta")
+    _write_fasta(fasta, names, [seqs[n] for n in names])
+    return fasta
+
+
+def phase_gard(torch, tmp: str) -> dict:
+    """GARD through ``gard.run`` on the recombinant alignment under
+    ``warmup`` (every L-BFGS capped at 3 iterations: one uncapped candidate
+    fit takes ~10 s on the card, PERF.md), with the search capped as set
+    below (at most GARD_CANDIDATES single-breakpoint candidates): seconds of
+    the host stages (TN93, NJ) and of each candidate fit with its
+    evaluations and K1 launches; a breakpoint of the best model within
+    GARD_BREAKPOINT_SLACK sites of the planted one, its c-AIC below the
+    baseline's; a second run resumed from the first one's checkpoint fits
+    only the baseline and ends alike; then the baseline and the best model
+    fitted to convergence in fp32 and in fp64, their c-AIC differences
+    against the search's 0.01 threshold."""
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.data.alignment import read_alignment
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction
+    from hyphy_tpu_torch.methods import gard
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    fasta = _recombinant_alignment(tmp)
+    filt = DataFilter.from_alignment(read_alignment(fasta), "nucleotide")
+    n_variable = len(gard._variable_sites(filt))
+    stride = -(-n_variable // GARD_CANDIDATES)
+    options = dict(candidate_stride=stride, population=GARD_POPULATION,
+                   stagnant_generations=GARD_STAGNANT, max_breakpoints=GARD_MAX_BREAKPOINTS)
+    checkpoint = os.path.join(tmp, "recombinant.GARD.checkpoint.json")
+    fits, host_s, evaluations, fit_calls = [], {"tn93": 0.0, "nj": 0.0}, [0], [0]
+    saved = [(gard._Evaluator, "evaluate"), (gard, "tn93_distance"), (gard, "infer_nj_tree"),
+             (LikelihoodFunction, "loglik"), (LikelihoodFunction, "fit")]
+    originals = [getattr(owner, name) for owner, name in saved]
+    evaluate, tn93, nj, loglik, fit = originals
+
+    def timed_evaluate(self, breakpoints):
+        before, k1, n_eval = self.evaluations, level_products.launches, evaluations[0]
+        t0 = time.perf_counter()
+        out = evaluate(self, breakpoints)
+        torch.cuda.synchronize()
+        if self.evaluations > before:
+            fits.append({"breakpoints": sorted(int(b) for b in breakpoints),
+                         "s": time.perf_counter() - t0, "evaluations": evaluations[0] - n_eval,
+                         "k1_launches": level_products.launches - k1, "caic": float(out)})
+        return out
+
+    def host_stage(fn, key):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host_s[key] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def counted_loglik(self, params):
+        evaluations[0] += 1
+        return loglik(self, params)
+
+    def counted_fit(self, *args, **kwargs):
+        fit_calls[0] += 1
+        return fit(self, *args, **kwargs)
+
+    gard._Evaluator.evaluate = timed_evaluate
+    gard.tn93_distance, gard.infer_nj_tree = host_stage(tn93, "tn93"), host_stage(nj, "nj")
+    LikelihoodFunction.loglik, LikelihoodFunction.fit = counted_loglik, counted_fit
+    torch.cuda.reset_peak_memory_stats()
+    level_products.launches = 0
+    settings.warmup = True
+    try:
+        t0 = time.perf_counter()
+        run = gard.run(fasta, checkpoint=checkpoint, **options)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        search_fits, first_fit_calls = list(fits), fit_calls[0]
+        # resumed from the checkpoint: the baseline is fitted again, nothing else
+        fit_calls[0] = 0
+        t0 = time.perf_counter()
+        resumed = gard.run(fasta, checkpoint=checkpoint, **options)
+        resumed_s = time.perf_counter() - t0
+        resumed_fit_calls = fit_calls[0]
+        launches = level_products.launches
+        settings.warmup = False
+        # the baseline and the best model fitted to convergence, fp32 and fp64
+        var_sites = gard._variable_sites(filt)[::stride]
+        converged = {}
+        for dtype in ("float32", "float64"):
+            os.environ["HYPHY_TPU_PRECISION"] = dtype
+            del fits[:]
+            refit = gard._Evaluator(filt, var_sites, 1e-4, device=DEVICE)
+            t0 = time.perf_counter()
+            caic = {"baseline": refit.evaluate(()), "best": refit.evaluate(run.breakpoints)}
+            converged[dtype] = {**caic, "delta": caic["baseline"] - caic["best"],
+                                "s": time.perf_counter() - t0, "fits": [dict(f) for f in fits]}
+    finally:
+        settings.warmup = False
+        os.environ.pop("HYPHY_TPU_PRECISION", None)
+        for (owner, name), original in zip(saved, originals):
+            setattr(owner, name, original)
+    res = {"total_s": total, "level_products_launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "options": options,
+           "variable_sites": n_variable, "host_s": host_s, "fit_calls": first_fit_calls,
+           "breakpoints": run.breakpoints, "baseline_caic": run.baseline_caic,
+           "best_caic": run.best_caic, "improvements": run.improvements,
+           "potential_breakpoints": run.json["potentialBreakpoints"],
+           "resumed_s": resumed_s, "resumed_fit_calls": resumed_fit_calls,
+           "fits": {"count": len(search_fits),
+                    **{key: _eval_stats([f[key] for f in search_fits])
+                       for key in ("s", "evaluations", "k1_launches")}},
+           "fit_list": search_fits, "converged": converged}
+    by_parts = {}
+    for f in search_fits:
+        row = by_parts.setdefault(str(len(f["breakpoints"]) + 1), [0, 0.0])
+        row[0] += 1
+        row[1] += f["s"]
+    res["fits"]["by_partitions"] = by_parts
+    near = [b for b in run.breakpoints if abs(b - (GARD_HALF - 1)) <= GARD_BREAKPOINT_SLACK]
+    log(f"[gard] warmup gard.run on {GARD_TAXA} taxa x {2 * GARD_HALF} sites ({n_variable} "
+        f"variable), {options}: {total:.2f} s, {len(search_fits)} candidate fits + the baseline "
+        f"({first_fit_calls} fits in all), K1 launches {launches} (with the resumed run), peak "
+        f"{res['peak_gb']:.2f} GB; "
+        f"host TN93 {host_s['tn93']:.3f} s, NJ {host_s['nj']:.3f} s")
+    log(f"[gard] per capped candidate fit: s {_rounded(res['fits']['s'])}, evaluations "
+        f"{_rounded(res['fits']['evaluations'])}, K1 launches "
+        f"{_rounded(res['fits']['k1_launches'])}; by partitions (fits, s) {by_parts}")
+    log(f"[gard] breakpoints {run.breakpoints} (planted after site {GARD_HALF}), "
+        f"{res['potential_breakpoints']} potential; improvements {run.improvements}; capped "
+        f"c-AIC baseline {run.baseline_caic:.4f} best {run.best_caic:.4f}")
+    log(f"[gard] resumed from the checkpoint: {resumed_s:.2f} s, {resumed_fit_calls} fit(s), "
+        f"breakpoints {resumed.breakpoints}")
+    for dtype, row in converged.items():
+        log(f"[gard] converged {dtype}: c-AIC baseline {row['baseline']:.4f} best "
+            f"{row['best']:.4f}, difference {row['delta']:.4f}; fits (s, evaluations, K1 "
+            f"launches) {[(round(f['s'], 2), f['evaluations'], f['k1_launches']) for f in row['fits']]}")
+    log(f"[gard] fp32 - fp64 c-AIC: baseline "
+        f"{converged['float32']['baseline'] - converged['float64']['baseline']:.4e}, best "
+        f"{converged['float32']['best'] - converged['float64']['best']:.4e} (the search's "
+        f"threshold 0.01)")
+    check(bool(near), f"GARD: no breakpoint within {GARD_BREAKPOINT_SLACK} of {GARD_HALF}")
+    check(run.best_caic < run.baseline_caic, "GARD: the best model is no better than the baseline")
+    check(resumed_fit_calls == 1 and resumed.json["totalModelCount"] == 0,
+          "GARD: the resumed run fitted candidates")
+    check(resumed.breakpoints == run.breakpoints and sorted(resumed.site_support)
+          == sorted(run.site_support) and all(abs(resumed.site_support[k] - v) <= 1e-12
+                                              for k, v in run.site_support.items()),
+          "GARD: the resumed run ends elsewhere")
+    check(all(math.isfinite(row[k]) for row in converged.values() for k in ("baseline", "best")),
+          "GARD: a converged fit is not finite")
+    check(all(row["best"] < row["baseline"] for row in converged.values()),
+          "GARD: converged, the best model is no better than the baseline")
+    check(launches > 0, "GARD launched no level_products kernel")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -4248,6 +4567,8 @@ def main(argv) -> int:
                     if r["states"] == 61 and r["dtype"] == "float32")
     protein = next(r for r in record["kernels"]["shapes"]
                    if r["shape"] == list(KERNEL_SHAPES[4]) and r["dtype"] == "float32")
+    nucleotide = next(r for r in record["kernels"]["shapes"]
+                      if r["shape"] == list(KERNEL_SHAPES[3]) and r["dtype"] == "float32")
     protein_eval = next(r for r in record["kernels"]["evaluation"]
                         if r["states"] == 20 and r["dtype"] == "float32")
     if not checks:
@@ -4273,6 +4594,9 @@ def main(argv) -> int:
         "protein_ms": protein["ms"], "protein_plain_ms": protein["plain_ms"],
         "protein_bound_ms": protein["bound_ms"], "protein_library_ms": protein["library_ms"],
         "protein_eval_ms": protein_eval["ms"], "protein_eval_bound_ms": protein_eval["bound_ms"],
+        "nucleotide_ms": nucleotide["ms"], "nucleotide_plain_ms": nucleotide["plain_ms"],
+        "nucleotide_bound_ms": nucleotide["bound_ms"],
+        "nucleotide_library_ms": nucleotide["library_ms"],
         "launches_by_phase": by_phase,
     } for name in SOURCES]
     if not checks:
@@ -4288,7 +4612,7 @@ def main(argv) -> int:
 
 
 def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
-    """Phases 4-26 into ``record``; returns the names of those that drive a
+    """Phases 4-28 into ``record``; returns the names of those that drive a
     method through its entry point (each reads K1's launch count around
     its run)."""
     def timed(name, fn, *args):
@@ -4336,9 +4660,12 @@ def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
     timed("leisr", phase_leisr, torch, prot_fasta, fasta, tree_path, tmp)
     timed("fade", phase_fade, torch, prot_aln, planted, con_tree, tmp)
     timed("fmm", phase_fmm, torch, fasta, tree_path, tmp)
+    timed("bgm", phase_bgm, torch, sim_aln, sim_tree, tmp)
+    timed("gard", phase_gard, torch, tmp)
     return ("main_path", "partitions", "options", "slac", "simulate", "meme", "fubar",
             "bstill", "contrast_fel", "contrast_meme", "meme_resample", "prime", "busted",
-            "busted_e", "busted_ph", "relax", "relax_groups", "absrel", "leisr", "fade", "fmm")
+            "busted_e", "busted_ph", "relax", "relax_groups", "absrel", "leisr", "fade", "fmm",
+            "bgm", "gard")
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -2,9 +2,9 @@
 
 Counterpart of ``hyphy_tpu/cli.py`` for the ported methods (FEL, SLAC,
 MEME, FUBAR, B-STILL, contrast-FEL, contrast-MEME, PRIME, BUSTED,
-BUSTED-PH, RELAX, aBSREL, FitMultiModel, LEISR, FADE, ``simulate``, and the
-post-processors ``error-filter`` and ``clade-support``), with the JAX
-parser's flags; it
+BUSTED-PH, RELAX, aBSREL, FitMultiModel, LEISR, FADE, BGM, GARD,
+``simulate``, and the post-processors ``error-filter`` and
+``clade-support``), with the JAX parser's flags; it
 writes ``<alignment>.<METHOD>.json`` like the reference analyses do.  It
 runs on ``settings.device`` — the card, raising without one; there is no
 device flag, as the JAX CLI has none.
@@ -41,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pw.add_argument("target", help="method to warm up (fel, slac, meme, fubar, b-still, "
                                    "contrast-fel, contrast-meme, simulate, prime, busted, "
-                                   "busted-ph, relax, absrel, fmm, leisr, fade)")
+                                   "busted-ph, relax, absrel, fmm, leisr, fade, bgm, "
+                                   "gard)")
     pw.add_argument("rest", nargs=argparse.REMAINDER,
                     help="arguments passed through to the method")
 
@@ -226,6 +227,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", dest="posterior_method", default="Variational-Bayes",
                    choices=["Variational-Bayes", "Collapsed-Gibbs", "Metropolis-Hastings"])
     p.add_argument("--concentration_parameter", type=float, default=0.5)
+
+    p = sub.add_parser("bgm", help="Bayesian Graphical Model detection of co-evolving sites")
+    common_args(p)
+    p.add_argument("--branches", default="All")
+    p.add_argument("--steps", type=int, default=100000)
+    p.add_argument("--burn-in", dest="burnin", type=int, default=10000)
+    p.add_argument("--samples", type=int, default=100)
+    p.add_argument("--max-parents", dest="max_parents", type=int, default=1)
+    p.add_argument("--min-subs", dest="min_subs", type=int, default=1)
+
+    p = sub.add_parser("gard", help="Genetic Algorithm for Recombination Detection")
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--output", default=None)
+    p.add_argument("--max-breakpoints", dest="max_breakpoints", type=int, default=10)
+    p.add_argument("--checkpoint", default=None, help="resumable cache JSON")
     return parser
 
 
@@ -276,7 +292,7 @@ def main(argv=None) -> int:
         print(f"ECB written to {out}: perplexity {result.perplexity}")
         return 0
 
-    tree = _read_tree_arg(args.tree)
+    tree = _read_tree_arg(getattr(args, "tree", None))
     t0 = time.time()
     if args.method == "fel":
         from hyphy_tpu_torch.methods import fel
@@ -371,6 +387,17 @@ def main(argv=None) -> int:
         result = fade.run(args.alignment, model=args.model, tree=tree, branches=args.branches,
                           grid_points=args.grid, method=args.posterior_method,
                           concentration=args.concentration_parameter)
+    elif args.method == "bgm":
+        from hyphy_tpu_torch.methods import bgm
+
+        result = bgm.run(args.alignment, tree, args.code, args.branches, steps=args.steps,
+                         burnin=args.burnin, samples=args.samples,
+                         max_parents=args.max_parents, min_subs=args.min_subs)
+    elif args.method == "gard":
+        from hyphy_tpu_torch.methods import gard
+
+        result = gard.run(args.alignment, max_breakpoints=args.max_breakpoints,
+                          checkpoint=args.checkpoint)
     else:
         from hyphy_tpu_torch.methods import simulate
 

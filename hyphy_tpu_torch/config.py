@@ -37,6 +37,8 @@ class Settings:
     # max optimizer iterations scaled by #parameters
     # (reference: MAXIMUM_ITERATIONS_PER_VARIABLE)
     max_iterations_per_variable: int = _env("MAX_ITER_PER_VAR", 2000, int)
+    # RNG seed (reference: RANDOM_SEED)
+    random_seed: int = _env("RANDOM_SEED", 0, int)
     # warmup mode: cap L-BFGS at 3 iterations and Nelder-Mead at 32, so a
     # whole pipeline runs each of its code paths once without paying for
     # the fits

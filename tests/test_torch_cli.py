@@ -51,7 +51,7 @@ def test_fel_flags_match_the_jax_cli():
 @pytest.mark.parametrize("method", ["slac", "meme", "simulate", "fubar", "b-still",
                                     "contrast-fel", "contrast-meme", "prime", "busted",
                                     "busted-ph", "error-filter", "clade-support", "relax",
-                                    "absrel", "fmm", "leisr", "fade"])
+                                    "absrel", "fmm", "leisr", "fade", "bgm", "gard"])
 def test_method_flags_match_the_jax_cli(method):
     assert _fel_flags(cli.build_parser(), method) == _fel_flags(jcli.build_parser(), method)
 

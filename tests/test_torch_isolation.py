@@ -28,8 +28,9 @@ print("LOADED", sorted(m for m in sys.modules if m.startswith("hyphy_tpu_torch."
 
 # modules added with FEL's options and CHARSET partitions, with SLAC, MEME
 # and simulate, with FUBAR, B-STILL and the contrast methods, with PRIME and
-# the BUSTED family, with RELAX and aBSREL, and with the protein models,
-# LEISR, FADE and FitMultiModel, which the walk above must reach
+# the BUSTED family, with RELAX and aBSREL, with the protein models,
+# LEISR, FADE and FitMultiModel, and with BGM and GARD, which the walk above
+# must reach
 _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batched",
                 "hyphy_tpu_torch.methods.fel", "hyphy_tpu_torch.io.json_out",
                 "hyphy_tpu_torch.ops.ancestral", "hyphy_tpu_torch.methods.counting",
@@ -44,7 +45,8 @@ _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batc
                 "hyphy_tpu_torch.io.serialize", "hyphy_tpu_torch.methods.relax",
                 "hyphy_tpu_torch.methods.absrel", "hyphy_tpu_torch.models.protein",
                 "hyphy_tpu_torch.methods.leisr", "hyphy_tpu_torch.methods.fade",
-                "hyphy_tpu_torch.methods.fmm"]
+                "hyphy_tpu_torch.methods.fmm", "hyphy_tpu_torch.methods.bgm",
+                "hyphy_tpu_torch.methods.gard"]
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -355,3 +357,45 @@ def test_protein_and_fmm_entry_points_raise_without_cuda(monkeypatch, tmp_path, 
         assert not out.exists()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         module.run(str(fasta), tree=newick)
+
+
+@pytest.mark.parametrize("method", ["bgm", "gard"])
+def test_bgm_and_gard_entry_points_raise_without_cuda(monkeypatch, tmp_path, method):
+    """BGM and GARD through the CLI, plain and under ``warmup``, and as
+    functions: they raise without CUDA, and run on the CPU only when asked
+    (BGM with a short chain, GARD with one breakpoint at most)."""
+    import importlib
+    import json
+
+    from hyphy_tpu_torch import cli
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
+
+    module = importlib.import_module(f"hyphy_tpu_torch.methods.{method}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(settings, "device", "cuda")
+    monkeypatch.setenv("HYPHY_TPU_PROGRESS", "0")
+    aln = synthetic_codon_alignment(5, 6, seed=3)
+    fasta = tmp_path / "a.fasta"
+    fasta.write_text("".join(f">{n}\n{s}\n" for n, s in zip(aln.names, aln.sequences)))
+    newick = random_tree_newick(5, seed=3)
+    out = tmp_path / "a.json"
+    if method == "bgm":
+        argv = ["bgm", "--alignment", str(fasta), "--tree", newick, "--output", str(out),
+                "--steps", "300", "--burn-in", "30", "--samples", "10"]
+        call = dict(tree=newick)
+    else:
+        argv = ["gard", "--alignment", str(fasta), "--output", str(out),
+                "--max-breakpoints", "1"]
+        call = {}
+    for prefix in ([], ["warmup"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(prefix + argv)
+        assert not out.exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.run(str(fasta), **call)
+    monkeypatch.setattr(settings, "device", "cpu")
+    assert cli.main(argv) == 0
+    result = json.loads(out.read_text())
+    assert ("fits" in result and "MLE" in result) if method == "bgm" else (
+        "breakpointData" in result and result["input"]["number of sequences"] == 5)

@@ -1,7 +1,8 @@
 """Helpers of the port's tests: carry the JAX package's global fits into
 the port, so that both packages fit sites from the same global point; and
 write the fixtures both packages read (a partitioned NEXUS, an alignment
-simulated under the multi-hit model)."""
+simulated under the multi-hit model, a nucleotide alignment with a planted
+recombination breakpoint)."""
 
 import numpy as np
 
@@ -279,3 +280,34 @@ def protein_alignment(n_taxa, n_sites, seed, model="WAG", mean_branch=0.2,
         states[:, planted] = simulate_states(tree, pb, pi, len(planted), rng)
     names, seqs = states_to_alignment(states, tree, "protein")
     return names, seqs, newick
+
+
+def write_recombinant_fasta(path, n_taxa, half, seeds, mean_branch=0.05, seed=7):
+    """A nucleotide alignment with one planted breakpoint: each half of
+    ``half`` sites simulated under GTR (``utils/simulate.py``; AC, AG, AT,
+    CG, CT, GT rates 1, 4, 1, 1, 4, 1, frequencies 0.3, 0.2, 0.25, 0.25)
+    along its own ``random_tree_newick(n_taxa, seeds[k], mean_branch)``,
+    the halves joined per taxon.  Returns the FASTA path."""
+    import scipy.linalg as sla
+
+    pi = np.array([0.3, 0.2, 0.25, 0.25])
+    q = np.zeros((4, 4))
+    for r, (i, j) in zip((1.0, 4.0, 1.0, 1.0, 4.0, 1.0),
+                         [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]):
+        q[i, j], q[j, i] = r * pi[j], r * pi[i]
+    np.fill_diagonal(q, -q.sum(axis=1))
+    q /= -(pi * np.diag(q)).sum()                  # unit expected rate
+    rng = np.random.default_rng(seed)
+    seqs = {}
+    for tree_seed in seeds:
+        tree = Tree.from_newick(random_tree_newick(n_taxa, seed=tree_seed,
+                                                   mean_branch=mean_branch))
+        lengths = np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6)
+        p = np.stack([sla.expm(q * t) for t in lengths])
+        names, part = states_to_alignment(simulate_states(tree, p, pi, half, rng), tree,
+                                          "nucleotide")
+        for name, s in zip(names, part):
+            seqs[name] = seqs.get(name, "") + s
+    order = sorted(seqs, key=lambda name: int(name[1:]))
+    path.write_text("".join(f">{n}\n{seqs[n]}\n" for n in order))
+    return str(path)
