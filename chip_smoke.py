@@ -11,7 +11,8 @@ Run from the root of a checkout; it builds the CUDA kernels from the
 checkout's sources.  Phases, each of which fails the run if it fails:
 
   1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-  2. the build of every kernel source (one ``nvcc`` each, all at once);
+  2. the build of every kernel source (one ``nvcc`` each) and of the host
+     C++ sources (one ``g++`` each), all at once;
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes (the protein evaluation's widest level, 20 states,
      among them) and at alignment and edge shapes, in fp32 and fp64, with
@@ -44,8 +45,8 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      with seconds per stage, K1 launches per partition, peak memory and ms
      per batched site evaluation; the JSON checked; then the per-site
      objective with per-site delta/psi, card against host in fp64 Taylor;
-  8. ``warmup fel --ci Yes --resample 10`` on 128 taxa x 128 codons
-     (``random_tree_newick(128, SEED)``: the CI's evaluations are a fixed
+  8. ``warmup fel --ci Yes --resample 10`` on 48 taxa x 128 codons
+     (``random_tree_newick(48, SEED)``: the CI's evaluations are a fixed
      number of steps whose launches follow the tree's levels, so the run is
      cut in taxa; capped under ``--full-fit`` too), with the
      fused Nelder-Mead probes (``HYPHY_TPU_NM_FUSED=1``: at 128 sites an
@@ -63,7 +64,8 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      the JSON (headers, finite tables, 2.5% <= median <= 97.5%);
  10. ``warmup simulate --replicates 2`` on phase 9's alignment: the
      replicates have its taxa and codons;
- 11. MEME on phase 9's alignment cut to 64 codons (the EBF's items grow
+ 11. MEME on phase 9's alignment cut to 64 codons, with the fused
+     Nelder-Mead probes (the EBF's items grow
      with codons x tested branches), through ``warmup meme``: seconds per
      stage (FEL, candidates, alternative, null, EBF), the EBF's items and
      chunks, K1 launches, one batched mixture evaluation timed and
@@ -80,7 +82,8 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      summing to 1, 7 of 9 planted codons at P[beta > alpha] >= 0.9;
  13. B-STILL on phase 9's alignment cut to 256 codons, ``warmup b-still
      --grid 20``: seconds, K1 launches, the JSON, finite EBFs;
- 14. contrast-FEL (G = 3) at 1000 taxa on a second alignment cut to 512
+ 14. contrast-FEL (G = 3) at 1000 taxa, with the fused Nelder-Mead
+     probes, on a second alignment cut to 512
      codons: two disjoint ~250-leaf clades of the same tree labelled FG and
      REF, omega = 5 on FG only at the nine planted codons, ``warmup
      contrast-fel --branch-set FG --branch-set REF``: seconds per stage, ms
@@ -90,7 +93,8 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      Taylor, 64 sites) and fp32 vs fp64, the substitution counts card vs
      host (equal);
  15. contrast-MEME on that alignment cut to 128 codons, ``warmup
-     contrast-meme ... --permutations 1``: seconds per stage (alternative,
+     contrast-meme ... --permutations 1`` with the fused Nelder-Mead
+     probes: seconds per stage (alternative,
      null, pairwise, permutations), the solves' items and chunks, K1
      launches; the mixture site lnL with per-item permuted set maps card vs
      host (fp64 Taylor, 64 sites), permutation p in multiples of 1/2;
@@ -99,7 +103,8 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      multiples of 1/2, the card's fp64 family propagators of two sites
      against ``scipy.linalg.expm`` on three branches (1e-10).
 
- 17. PRIME at 1000 taxa on phase 9's alignment cut to 512 codons,
+ 17. PRIME at 1000 taxa on phase 9's alignment cut to 512 codons, with
+     the fused Nelder-Mead probes,
      ``warmup prime``: seconds
      per stage (load, GTR, MG94, grid, the full fit, the five nulls,
      JSON), ms per batched site evaluation, K1 launches, peak memory; the
@@ -148,7 +153,7 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      stage, K1 launches, ms on both forms of the fp32 Taylor route; df = 2,
      the two K, the group objective card vs host (fp64 Taylor, 64 patterns,
      1e-9 relative);
- 23. aBSREL on ``simulated_codon_alignment(48, 1024, seed=11)``, ``warmup
+ 23. aBSREL on ``simulated_codon_alignment(32, 1024, seed=11)``, ``warmup
      absrel --srv Yes``: seconds per stage (baseline, step-up with its fits
      and classes added, polish, branch nulls), ms per value and
      value+gradient, K1 launches, peak memory; two branches' nulls, with
@@ -203,9 +208,33 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      the planted one with c-AIC below the baseline's; the run resumed from
      its checkpoint fits only the baseline and ends alike; the baseline and
      the best model fitted to convergence in fp32 and in fp64, the best
-     below the baseline in both, their c-AIC differences printed.
+     below the baseline in both, their c-AIC differences printed;
+ 29. the rest of the engine at full width, through its library entry
+     points: (a) the Binary model on 1000 taxa x 8192 presence/absence
+     characters simulated along phase 4's tree, fitted capped in fp32 (K1
+     at 2 states), lnL card fp64 vs host fp64 (1e-9 relative) and fp32 vs
+     fp64 per pattern (0.03); (b) GTR on phase 4's alignment read as 6144
+     nucleotides, fitted capped with theta_AC := R theta_AT and with a
+     molecular clock (1 height + 998 fractions): each constraint exact, the
+     root-to-tip paths equal (1e-9 relative), card vs host fp64 lnL (1e-9
+     relative); (c) MG94xREV (F1x4) and MG94xREVLocal (CF3x4, 3996
+     per-branch rates) on phase 4's alignment, fitted capped: ms per value
+     and value+gradient, K1 per value, the propagators' ms (1998 per-branch
+     generators: fp32 Taylor, fp64 spectral), fp32 vs fp64 per pattern
+     (0.03); (d) the covariance of the five thetas and omega at the
+     MG94xREV fit in fp64 (an autograd Hessian through K1's
+     twice-differentiable wrapper): symmetric (1e-8), its inverse against
+     central differences of the gradient (1e-4 of the largest entry), and
+     the profile CI of omega (LB <= MLE <= UB, its loglik evaluations
+     counted); (e) the marginal posteriors of all 999 internal nodes x 2048
+     patterns in fp64: rows summing to 1 (1e-9), card vs host on 64
+     patterns (1e-9); (f) the dense per-site route against the Taylor one
+     on 64 sites (1e-9), expm and transition_matrix against scipy on 64
+     generators (1e-10), the discretized gamma and its alpha gradient card
+     vs host (1e-10), the native aligners against their Python mirrors and
+     the native TN93 against NumPy's on phase 28's input (1e-12).
 
-``--precision-check`` runs phases 1-3 and then, in place of phases 4-28,
+``--precision-check`` runs phases 1-3 and then, in place of phases 4-29,
 FEL's per-site stage on phase 8's input at one capped global fit, run to
 convergence in fp32 and in fp64: the same p <= 0.1 set, and alpha and beta
 within the stated tolerance at all but 5% of the sites.  ``--busted-check``
@@ -230,7 +259,7 @@ aBSREL uncapped in fp32 on the episodic control along 32 taxa, 512 codons
 reported.
 
 K1's ``launches`` on the kernels line sum the phases that drive a method
-(4, 7-28, or the precision, BUSTED or RELAX check), each counted from 0
+(4, 7-29, or the precision, BUSTED or RELAX check), each counted from 0
 around its run.  It
 imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
@@ -276,9 +305,12 @@ DEVICE = "cuda"
 # reports; (3,3,1000,61): K=3 with a ragged last pattern tile;
 # (320,2,6144,4): the GTR fit's widest level (6144 nucleotide patterns);
 # (320,2,2048,20): the protein evaluation's widest level (LEISR's 2048
-# residues; 20 of K1's 32 state rows filled in fp32 and fp64 alike)
+# residues; 20 of K1's 32 state rows filled in fp32 and fp64 alike);
+# (320,2,8192,2): the Binary fit's widest level (phase 29's BINARY_CHARS
+# presence/absence characters keep ~8192 patterns; 2 of 32 state rows)
+BINARY_CHARS, BINARY_FREQS = 8192, (0.6, 0.4)
 KERNEL_SHAPES = [(5, 2, 700, 61), (500, 2, 2048, 61), (3, 3, 1000, 61),
-                 (320, 2, 6144, 4), (320, 2, 2048, 20)]
+                 (320, 2, 6144, 4), (320, 2, 2048, 20), (320, 2, BINARY_CHARS, 2)]
 # shapes the kernel's tiling is exposed to: odd P (misaligned tile starts),
 # K=3 ragged, the amino-acid width (8 state groups), full lanes on one node,
 # a polytomy at S=4
@@ -288,9 +320,9 @@ EDGE_SHAPES = [(7, 2, 2047, 61), (4, 3, 1001, 61), (2, 2, 333, 20),
 # one evaluation launches K1 once per level (phase 5 checks the count)
 LEVEL_WIDTHS = [320, 200, 133, 90, 61, 49, 36, 27, 18, 13, 12, 8, 6, 5, 4, 3,
                 3, 3, 3, 2, 1, 1, 1]
-# (patterns, states) of the codon (MG94), nucleotide (GTR) and protein
-# (LEISR's baseline) evaluations
-LEVEL_PATTERNS = [(N_CODONS, 61), (3 * N_CODONS, 4), (N_CODONS, 20)]
+# (patterns, states) of the codon (MG94), nucleotide (GTR), protein
+# (LEISR's baseline) and binary (phase 29) evaluations
+LEVEL_PATTERNS = [(N_CODONS, 61), (3 * N_CODONS, 4), (N_CODONS, 20), (BINARY_CHARS, 2)]
 REL_BOUND = {"float32": 1e-5, "float64": 1e-12}
 # phase 6: rows of FEL's SRV start grid, (alpha, beta) = (0.01, 0.1),
 # (1, 1), (10, 50); sites held card against host; bounds on the per-site lnL
@@ -318,8 +350,9 @@ MH_SITE_POINTS = [(1.0, 1.0, 0.05, 0.05), (0.01, 0.1, 1.0, 1.0), (10.0, 50.0, 10
 # phase 8: taxa and codons of the CI / bootstrap run, and bootstrap
 # replicates: the CI's evaluations are a fixed number of bisection and
 # Nelder-Mead steps whose launches follow the tree's levels, so the run is
-# cut in taxa (random_tree_newick(CI_TAXA, SEED)) for the 900 s budget
-CI_TAXA, CI_CODONS, N_RESAMPLE = 128, 128, 10
+# cut in taxa (random_tree_newick(CI_TAXA, SEED)) for the 900 s budget: 48
+# taxa (9 levels) since phase 29 (128 taxa, 13 levels, until then)
+CI_TAXA, CI_CODONS, N_RESAMPLE = 48, 128, 10
 # the fused Nelder-Mead probes: sites (512 cut for phases 27-28), and
 # iterations timed
 FUSED_SITES, FUSED_ITERATIONS = [128], 6
@@ -392,9 +425,9 @@ RELAX_POWER_BOUND = 1e-6
 RELAX_GROUP_CODONS = 512
 # phase 23: aBSREL's taxa and codons: the step-up fits every branch at
 # least once, one capped fit each, so 1000 taxa (1998 branches) would not
-# fit the run; codons cut to 1024 and taxa to 48 (from 64) for the 900 s
-# budget
-ABSREL_TAXA, ABSREL_CODONS = 48, 1024
+# fit the run; codons cut to 1024 and taxa to 48 (from 64), then to 32 for
+# phase 29, for the 900 s budget
+ABSREL_TAXA, ABSREL_CODONS = 32, 1024
 # --relax-check: RELAX --models Minimal uncapped on the contrast alignment
 # cut to RELAX_CHECK_CODONS codons in fp32 and fp64; aBSREL uncapped in fp32
 # on the episodic alignment (below) along ABSREL_CHECK_TAXA taxa, of
@@ -446,6 +479,25 @@ GARD_TAXA, GARD_HALF, GARD_TREE_SEEDS = 24, 600, (SEED, SEED + 1)
 GARD_RATES, GARD_FREQS = (1.0, 4.0, 1.0, 1.0, 4.0, 1.0), (0.3, 0.2, 0.25, 0.25)
 GARD_CANDIDATES, GARD_POPULATION, GARD_STAGNANT, GARD_MAX_BREAKPOINTS = 24, 8, 3, 3
 GARD_BREAKPOINT_SLACK = 30
+# phase 29 (the rest of the engine): (a) a presence/absence matrix of
+# BINARY_CHARS characters simulated under Binary(BINARY_FREQS) along
+# random_tree_newick(N_TAXA, SEED) (pangenome gene-presence matrices of about a
+# thousand genomes by some thousands of gene families), its fit capped; (b)
+# bench.py's alignment read as nucleotides under GTR with a Proportional and a
+# MolecularClock constraint; (c) MG94xREV (F1x4) and MG94xREVLocal (CF3x4) on
+# bench.py's workload; (d) the covariance of ENGINE_COV_KEYS and the profile
+# CI of omega at the MG94xREV fit in fp64; (e) the marginal posteriors of
+# every internal node in fp64; (f) the small checks.  Bounds: card fp64 lnL
+# against the host's (relative); fp32 against fp64 per pattern; constraint
+# paths (relative); the Hessian's symmetry and its central differences
+# (relative to its largest entry, steps ENGINE_FD_STEP relative); posterior
+# rows; the dense per-site route against the Taylor one; expm against scipy
+ENGINE_HOST_REL_BOUND, ENGINE_FP32_SITE_BOUND, CLOCK_PATH_REL_BOUND = 1e-9, 0.03, 1e-9
+ENGINE_COV_KEYS = ["theta_AC", "theta_AT", "theta_CG", "theta_CT", "theta_GT", "omega"]
+HESSIAN_SYM_BOUND, HESSIAN_FD_BOUND, ENGINE_FD_STEP = 1e-8, 1e-4, 1e-4
+POSTERIOR_ROW_BOUND, MARGINAL_HOST_PATTERNS, MARGINAL_HOST_BOUND = 1e-9, 64, 1e-9
+DENSE_SITES, DENSE_BOUND, EXPM_GENERATORS, EXPM_BOUND = 64, 1e-9, 64, 1e-10
+GAMMA_ALPHAS, GAMMA_BOUND, TN93_BOUND = (0.3, 1.0, 5.0), 1e-10, 1e-12
 # --busted-check: BUSTED uncapped in fp32 and fp64 on three inputs, each
 # fit's lnL finite and below 0 and the unconstrained lnL no lower than the
 # constrained one less ALT_NULL_SLACK (the refit from the constrained MLE
@@ -570,9 +622,10 @@ def phase_build() -> dict:
     from hyphy_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build_all()
+    cuda_build.build_sources()        # nvcc for csrc/*.cu and g++ for native/*.cpp, at once
     seconds = time.perf_counter() - t0
-    log(f"[build] {', '.join(cuda_build.SOURCES)}: {seconds:.2f} s")
+    log(f"[build] {', '.join(cuda_build.SOURCES)} (nvcc), "
+        f"{', '.join(cuda_build.HOST_SOURCES)} (g++): {seconds:.2f} s")
     return {"seconds": seconds}
 
 
@@ -1472,7 +1525,7 @@ def phase_partitions(torch, aln, newick: str, tmp: str, full_fit: bool) -> dict:
 
 
 def phase_options(torch, tmp: str) -> dict:
-    """``warmup fel --ci Yes --resample 10`` on 128 taxa x 128 codons
+    """``warmup fel --ci Yes --resample 10`` on CI_TAXA taxa x 128 codons
     through the CLI in-process: the CI's and the bootstrap's seconds apart,
     and the columns checked.  Capped under ``--full-fit`` too: the profile's
     61 Nelder-Mead fits at their uncapped 80 iterations would take 2.5x the
@@ -4528,6 +4581,493 @@ def phase_gard(torch, tmp: str) -> dict:
     return res
 
 
+def _engine_binary(torch, newick: str, tmp: str) -> dict:
+    """(a) Binary, K1 at 2 states: BINARY_CHARS characters simulated along
+    the bench tree, the fit capped (``warmup``) in fp32, then the lnL at the
+    fitted point on the card in fp32 and fp64 and on the host in fp64."""
+    import numpy as np
+
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.data.alignment import read_alignment
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.models.binary import Binary
+    from hyphy_tpu_torch.ops.level_products import level_products
+    from hyphy_tpu_torch.tree.topology import Tree
+    from hyphy_tpu_torch.utils.simulate import simulate_states
+
+    t0 = time.perf_counter()
+    sim_tree = Tree.from_newick(newick)
+    lengths = np.maximum(np.asarray(sim_tree.input_lengths[:-1]), 1e-6)
+    truth = Binary(BINARY_FREQS, device="cpu")
+    p = truth.build({"t": torch.as_tensor(lengths)}, sim_tree.n_branches).p_matrices.numpy()
+    states = simulate_states(sim_tree, p, np.asarray(BINARY_FREQS), BINARY_CHARS,
+                             np.random.default_rng(SEED))
+    chars = np.array(["0", "1"])[states[: sim_tree.n_leaves]]
+    fasta = os.path.join(tmp, "binary.fasta")
+    _write_fasta(fasta, sim_tree.names[: sim_tree.n_leaves], ["".join(row) for row in chars])
+    filt = DataFilter.from_alignment(read_alignment(fasta), "binary")
+    tree = Tree.from_newick(newick, leaf_order=filt.names)
+    freqs = filt.harvest_frequencies(1, 1, False)[:, 0]
+    input_s = time.perf_counter() - t0
+    part = [Partition(filt, tree, Binary(freqs, device=DEVICE))]
+    lf32 = LikelihoodFunction(part, device=DEVICE)
+    lf64 = LikelihoodFunction(part, dtype=torch.float64, device=DEVICE)
+    lf_host = LikelihoodFunction([Partition(filt, tree, Binary(freqs, device="cpu"))],
+                                 device="cpu")
+    settings.warmup = True
+    try:
+        t0 = time.perf_counter()
+        fit = lf32.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        settings.warmup = False
+    params = {k: v.detach() for k, v in fit.params.items()}
+    with torch.no_grad():
+        before = level_products.launches
+        site32 = lf32.site_log_likelihoods(params)[0]
+        k1_per_value = level_products.launches - before
+        site64 = lf64.site_log_likelihoods(params)[0]
+        site_host = lf_host.site_log_likelihoods({k: v.cpu() for k, v in params.items()})[0]
+    w = np.asarray(filt.pattern_weights)
+    lnl = {"fp32": float(site32.double().cpu().numpy() @ w),
+           "fp64": float(site64.cpu().numpy() @ w), "host_fp64": float(site_host.numpy() @ w)}
+    host_rel = abs(lnl["fp64"] - lnl["host_fp64"]) / abs(lnl["host_fp64"])
+    fp32_site = float((site32.double() - site64).abs().max())
+
+    def value():
+        with torch.no_grad():
+            return lf32.loglik(params)
+
+    def value_grad():
+        q = {k: v.clone().requires_grad_() for k, v in params.items()}
+        lf32.loglik(q).backward()
+
+    widest = max(len(lv) for lv in tree.levels())
+    res = {"characters": BINARY_CHARS, "patterns": int(filt.n_patterns), "input_s": input_s,
+           "fit_s": fit_s, "fit_iterations": fit.n_iterations, "lnl": lnl,
+           "host_rel": host_rel, "fp32_max_site_diff": fp32_site,
+           "k1_per_value": k1_per_value, "value_ms": wall_ms(torch, value, 5),
+           "value_grad_ms": wall_ms(torch, value_grad, 5),
+           "widest_level": [widest, 2, int(filt.n_patterns), 2]}
+    log(f"[engine] (a) Binary on {N_TAXA} taxa x {BINARY_CHARS} characters "
+        f"({res['patterns']} patterns; input {input_s:.2f} s on the host): capped fit "
+        f"{fit_s:.2f} s ({fit.n_iterations} iterations), lnL fp32 {lnl['fp32']:.6f} fp64 "
+        f"{lnl['fp64']:.8f} host fp64 {lnl['host_fp64']:.8f} (card vs host rel "
+        f"{host_rel:.3e}, bound {ENGINE_HOST_REL_BOUND}); fp32 vs fp64 max per pattern "
+        f"{fp32_site:.3e} (bound {ENGINE_FP32_SITE_BOUND}); K1 per value {k1_per_value} at "
+        f"widest {res['widest_level']}; ms per value {_rounded_list(res['value_ms'])}, "
+        f"value+gradient {_rounded_list(res['value_grad_ms'])}")
+    check(host_rel <= ENGINE_HOST_REL_BOUND, "Binary: card fp64 lnL far from the host's")
+    check(fp32_site <= ENGINE_FP32_SITE_BOUND, "Binary: fp32 site lnL far from fp64")
+    check(k1_per_value == len(tree.levels()), "Binary: not one K1 launch per level")
+    return res
+
+
+def _rounded_list(values) -> list:
+    return [round(v, 3) for v in values]
+
+
+def _root_to_tip(tree, t):
+    """Every leaf's path length to the root under branch values ``t``."""
+    import numpy as np
+
+    dist = np.zeros(tree.n_nodes)
+    for nd in sorted(range(tree.n_nodes), key=lambda n: -n):     # parents first
+        if nd != tree.root:
+            dist[nd] = dist[tree.parent[nd]] + t[nd]
+    return dist[: tree.n_leaves]
+
+
+def _engine_constraints(torch, fasta: str, newick: str) -> dict:
+    """(b) Constraints: bench.py's alignment read as nucleotides under GTR,
+    fitted (capped) with theta_AC := R theta_AT and with a molecular clock
+    on t; each constraint holds on the fitted parameters, and the card's
+    fp64 lnL at them equals the host's."""
+    import numpy as np
+
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.data.alignment import read_alignment
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.models.constraints import MolecularClock, Proportional
+    from hyphy_tpu_torch.models.dna import GTR
+    from hyphy_tpu_torch.tree.topology import Tree
+
+    filt = DataFilter.from_alignment(read_alignment(fasta), "nucleotide")
+    tree = Tree.from_newick(newick, leaf_order=filt.names)
+    freqs = filt.harvest_frequencies(1, 1, False)[:, 0]
+    lf32 = LikelihoodFunction([Partition(filt, tree, GTR(freqs, device=DEVICE))], device=DEVICE)
+    lf64 = LikelihoodFunction(lf32.partitions, dtype=torch.float64, device=DEVICE)
+    lf_host = LikelihoodFunction([Partition(filt, tree, GTR(freqs, device="cpu"))], device="cpu")
+    res = {"patterns": int(filt.n_patterns)}
+    for name, con in (("proportional", Proportional("theta_AC", "theta_AT", ratio_key="R")),
+                      ("clock", MolecularClock(tree, "t"))):
+        settings.warmup = True
+        try:
+            t0 = time.perf_counter()
+            fit = lf32.fit(constraints=[con])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        finally:
+            settings.warmup = False
+        params = {k: v.detach() for k, v in fit.params.items()}
+        with torch.no_grad():
+            card = float(lf64.loglik(params))
+        host = float(lf_host.loglik({k: v.cpu() for k, v in params.items()}))
+        row = {"fit_s": fit_s, "iterations": fit.n_iterations, "free": fit.n_free_parameters,
+               "lnl_fit_fp32": fit.loglik, "lnl_fp64": card, "lnl_host_fp64": host,
+               "host_rel": abs(card - host) / abs(host)}
+        if name == "proportional":
+            ac, r, at = (float(params[k]) for k in ("theta_AC", "R", "theta_AT"))
+            row["exact"] = ac == r * at
+            check(row["exact"], "Proportional: theta_AC is not R * theta_AT")
+        else:
+            t = params["t"].cpu().numpy()
+            paths = _root_to_tip(tree, t)
+            height = float(params["t_clock_height"])
+            row["path_rel"] = float(np.abs(paths - height).max() / height)
+            row["min_t"] = float(t.min())
+            check(row["min_t"] >= 0 and row["path_rel"] <= CLOCK_PATH_REL_BOUND,
+                  f"MolecularClock: root-to-tip paths differ by {row['path_rel']:.3e}")
+        log(f"[engine] (b) GTR with {name} on {N_TAXA} taxa x {3 * N_CODONS} nucleotides "
+            f"({res['patterns']} patterns): capped fit {fit_s:.2f} s ({fit.n_iterations} "
+            f"iterations, {fit.n_free_parameters} free), lnL fp32 {fit.loglik:.6f}; at the fit "
+            f"card fp64 {card:.8f} host fp64 {host:.8f} (rel {row['host_rel']:.3e}); "
+            + (f"theta_AC == R theta_AT {row['exact']}" if name == "proportional" else
+               f"root-to-tip paths within {row['path_rel']:.3e} of the height, min t "
+               f"{row['min_t']:.3e}"))
+        check(row["host_rel"] <= ENGINE_HOST_REL_BOUND,
+              f"{name}: card fp64 lnL far from the host's")
+        res[name] = row
+    return res
+
+
+def _engine_codon(torch, aln, newick: str) -> dict:
+    """(c) MG94xREV (F1x4) and MG94xREVLocal (CF3x4) on bench.py's workload,
+    fitted capped in fp32: ms per value and value+gradient, K1 launches per
+    value, the propagators' ms (fp32 Taylor; fp64 spectral: one eigh per
+    branch for the local model), and fp32 against fp64 per pattern at the
+    fit.  Returns the MG94xREV model, fit and filter for (d)-(f)."""
+    import numpy as np
+
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.data.genetic_code import GeneticCode
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.models import frequencies as freq_mod
+    from hyphy_tpu_torch.models.codon import MG94xREV, MG94xREVLocal
+    from hyphy_tpu_torch.ops.level_products import level_products
+    from hyphy_tpu_torch.tree.topology import Tree
+
+    gc = GeneticCode("Universal")
+    filt = DataFilter.from_alignment(aln, "codon", genetic_code=gc)
+    tree = Tree.from_newick(newick, leaf_order=filt.names)
+    nb = tree.n_branches
+    res, keep = {}, {}
+    for name, cls, freqs in (("MG94xREV", MG94xREV, freq_mod.f1x4(filt, gc)),
+                             ("MG94xREVLocal", MG94xREVLocal,
+                              freq_mod.cf3x4(filt, gc, device=DEVICE))):
+        model = cls(gc, *freqs, device=DEVICE)
+        part = [Partition(filt, tree, model)]
+        lf32 = LikelihoodFunction(part, device=DEVICE)
+        lf64 = LikelihoodFunction(part, dtype=torch.float64, device=DEVICE)
+        settings.warmup = True
+        try:
+            t0 = time.perf_counter()
+            fit = lf32.fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        finally:
+            settings.warmup = False
+        params = {k: v.detach() for k, v in fit.params.items()}
+        p32 = {k: v.float() for k, v in params.items()}
+
+        def value():
+            with torch.no_grad():
+                return lf32.loglik(params)
+
+        def value_grad():
+            q = {k: v.clone().requires_grad_() for k, v in params.items()}
+            lf32.loglik(q).backward()
+
+        def build32():
+            with torch.no_grad():
+                return model.build(p32, nb)
+
+        def build64():
+            with torch.no_grad():
+                return model.build(params, nb)
+
+        before = level_products.launches
+        value()
+        k1_per_value = level_products.launches - before
+        row = {"fit_s": fit_s, "iterations": fit.n_iterations, "free": fit.n_free_parameters,
+               "lnl_fit_fp32": fit.loglik, "k1_per_value": k1_per_value,
+               "value_ms": wall_ms(torch, value, 5), "value_grad_ms": wall_ms(torch, value_grad, 3),
+               "propagators_fp32_ms": wall_ms(torch, build32, 3),
+               "propagators_fp64_ms": wall_ms(torch, build64, 1)}
+        with torch.no_grad():
+            site32 = lf32.site_log_likelihoods(params)[0].double()
+            site64 = lf64.site_log_likelihoods(params)[0]
+        row["fp32_max_site_diff"] = float((site32 - site64).abs().max())
+        row["lnl_fp64"] = float(site64.cpu().numpy() @ np.asarray(filt.pattern_weights))
+        log(f"[engine] (c) {name} ({'F1x4' if name == 'MG94xREV' else 'CF3x4'}, "
+            f"{fit.n_free_parameters} free parameters) on {N_TAXA} x {N_CODONS} codons: capped "
+            f"fit {fit_s:.2f} s ({fit.n_iterations} iterations), lnL fp32 {fit.loglik:.6f}, fp64 "
+            f"{row['lnl_fp64']:.6f}; fp32 vs fp64 max per pattern {row['fp32_max_site_diff']:.3e} "
+            f"(bound {ENGINE_FP32_SITE_BOUND}); ms per value {_rounded_list(row['value_ms'])}, "
+            f"value+gradient {_rounded_list(row['value_grad_ms'])}; K1 per value {k1_per_value}; "
+            f"propagators ({nb} branches) fp32 Taylor {_rounded_list(row['propagators_fp32_ms'])} "
+            f"ms, fp64 spectral {_rounded_list(row['propagators_fp64_ms'])} ms")
+        check(math.isfinite(fit.loglik) and math.isfinite(row["lnl_fp64"]),
+              f"{name}: a non-finite lnL")
+        check(row["fp32_max_site_diff"] <= ENGINE_FP32_SITE_BOUND,
+              f"{name}: fp32 site lnL far from fp64")
+        check(k1_per_value == len(tree.levels()), f"{name}: not one K1 launch per level")
+        res[name] = row
+        if name == "MG94xREV":
+            keep = dict(model=model, params=params, filt=filt, tree=tree, lf64=lf64)
+        del lf32, lf64, part
+        torch.cuda.empty_cache()
+    return res, keep
+
+
+def _engine_uncertainty(torch, keep) -> dict:
+    """(d) covariance_matrix over the five thetas and omega at the MG94xREV
+    fit in fp64 (its inverse, the negative Hessian, held to central
+    differences of the autograd gradient), then profile_ci of omega."""
+    import numpy as np
+
+    lf64 = keep["lf64"]
+    params = {k: v.double() for k, v in keep["params"].items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cov, labels = lf64.covariance_matrix(params, keys=ENGINE_COV_KEYS)
+    cov_s = time.perf_counter() - t0
+    hess = -np.linalg.pinv(cov)
+    x0 = np.array([float(params[k]) for k in ENGINE_COV_KEYS])
+
+    def grad_at(x):
+        leaves = [torch.tensor(v, dtype=torch.float64, device=DEVICE, requires_grad=True)
+                  for v in x]
+        p = dict(params)
+        p.update(zip(ENGINE_COV_KEYS, leaves))
+        return np.array([float(g) for g in torch.autograd.grad(lf64.loglik(p), leaves)])
+
+    t0 = time.perf_counter()
+    fd = np.zeros((len(x0), len(x0)))
+    for i in range(len(x0)):
+        h = ENGINE_FD_STEP * max(abs(x0[i]), 1e-3)
+        e = np.zeros(len(x0))
+        e[i] = h
+        fd[i] = (grad_at(x0 + e) - grad_at(x0 - e)) / (2 * h)
+    fd_s = time.perf_counter() - t0
+    scale = np.abs(fd).max()
+    sym = float(np.abs(cov - cov.T).max() / np.abs(cov).max())
+    fd_rel = float(np.abs(hess - fd).max() / scale)
+    with torch.no_grad():
+        lnl = float(lf64.loglik(params))
+    calls = [0]
+    original = lf64.loglik
+
+    def counted(p):
+        calls[0] += 1
+        return original(p)
+
+    lf64.loglik = counted
+    try:
+        t0 = time.perf_counter()
+        lo, hi = lf64.profile_ci(params, "omega", lnl)
+        ci_s = time.perf_counter() - t0
+    finally:
+        del lf64.loglik
+    omega = float(params["omega"])
+    res = {"labels": labels, "covariance_s": cov_s, "fd_s": fd_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "hessian_diag": np.diag(hess).tolist(), "variances": np.diag(cov).tolist(),
+           "cov_symmetry_rel": sym, "hessian_vs_fd_rel": fd_rel, "lnl_fp64": lnl,
+           "omega": omega, "omega_ci": [lo, hi], "ci_s": ci_s, "ci_evaluations": calls[0]}
+    log(f"[engine] (d) covariance of {labels} at the MG94xREV fit (fp64): {cov_s:.2f} s, "
+        f"peak {res['peak_gb']:.2f} GB; symmetric to {sym:.3e} (bound {HESSIAN_SYM_BOUND}); "
+        f"-inverse vs central differences of the gradient {fd_rel:.3e} of the largest entry "
+        f"{scale:.4e} (bound {HESSIAN_FD_BOUND}; {fd_s:.2f} s); variances "
+        f"{[f'{v:.3e}' for v in res['variances']]}")
+    log(f"[engine] (d) profile CI of omega: [{lo:.6f}, {hi:.6f}] around {omega:.6f}, "
+        f"{calls[0]} loglik evaluations, {ci_s:.2f} s")
+    check(bool(np.isfinite(cov).all()) and bool(np.isfinite(hess).all()),
+          "covariance: non-finite entries")
+    check(sym <= HESSIAN_SYM_BOUND, "covariance: not symmetric")
+    check(fd_rel <= HESSIAN_FD_BOUND, "covariance: Hessian differs from central differences")
+    check(lo <= omega <= hi, "profile CI without LB <= MLE <= UB")
+    return res
+
+
+def _engine_marginal(torch, keep) -> dict:
+    """(e) marginal_posteriors of every internal node at the MG94xREV fit in
+    fp64 on the card: rows summing to 1, and the first patterns against
+    the host's on the same propagators."""
+    from hyphy_tpu_torch.ops import ancestral, pruning
+
+    model, filt, tree = keep["model"], keep["filt"], keep["tree"]
+    params = {k: v.double() for k, v in keep["params"].items()}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        p = model.build(params, tree.n_branches).p_matrices
+        leaves = torch.as_tensor(filt.leaf_partials(), device=DEVICE).double()
+        freqs = model.frequencies.double()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = ancestral.marginal_posteriors(p, leaves, freqs,
+                                             pruning.build_pruning_data(tree, DEVICE))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        row_err = float((post.sum(-1) - 1.0).abs().max())
+        n = MARGINAL_HOST_PATTERNS
+        host = ancestral.marginal_posteriors(p.cpu(), leaves[:, :n].cpu(), freqs.cpu(),
+                                             pruning.build_pruning_data(tree, "cpu"))
+        host_diff = float((post[:, :n].cpu() - host).abs().max())
+    res = {"shape": list(post.shape), "card_s": card_s, "row_sum_err": row_err,
+           "host_max_diff": host_diff, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[engine] (e) marginal posteriors {res['shape']} fp64: {card_s:.2f} s, peak "
+        f"{res['peak_gb']:.2f} GB; rows sum to 1 within {row_err:.3e} (bound "
+        f"{POSTERIOR_ROW_BOUND}); card vs host on {n} patterns {host_diff:.3e} (bound "
+        f"{MARGINAL_HOST_BOUND})")
+    check(row_err <= POSTERIOR_ROW_BOUND, "marginal posteriors: rows do not sum to 1")
+    check(host_diff <= MARGINAL_HOST_BOUND, "marginal posteriors: card differs from host")
+    return res
+
+
+def _engine_small(torch, keep, tmp: str) -> dict:
+    """(f) The dense per-site route against the Taylor per-site route;
+    expm and transition_matrix against scipy; the discretized gamma card vs
+    host; the native aligners against their Python mirrors; native TN93
+    against NumPy TN93 on GARD's input."""
+    import numpy as np
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch import align
+    from hyphy_tpu_torch.data.alignment import read_alignment
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.methods import gard
+    from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
+    from hyphy_tpu_torch.models.rate_variation import discretized_gamma
+    from hyphy_tpu_torch.ops import expm, pruning
+
+    res = {}
+    model, filt, tree = keep["model"], keep["filt"], keep["tree"]
+    params = {k: v.double() for k, v in keep["params"].items()}
+    with torch.no_grad():
+        q_syn, q_non = model.basis_matrices(params)
+        q = fill_diagonal_from_rows(q_syn + params["omega"] * q_non)
+        t = params["t"]
+        leaves = torch.as_tensor(filt.leaf_partials()[:, :DENSE_SITES], device=DEVICE)
+        leaves = leaves.double().transpose(0, 1).contiguous()                  # [N, leaves, S]
+        data = pruning.build_pruning_data(tree, DEVICE)
+        freqs = model.frequencies.double()
+        t0 = time.perf_counter()
+        p = expm.transition_matrix(q.expand(len(t), -1, -1), t)
+        dense = pruning.single_site_log_likelihood_dense(p, leaves, freqs, data)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        qn, m2p, r, j = expm.taylor_action_factors(q.expand(DENSE_SITES, 1, -1, -1), t)
+        group = torch.zeros(len(t), dtype=torch.int64, device=DEVICE)
+        taylor = pruning.single_site_log_likelihood_taylor(
+            qn, m2p, r[:, 0], j[:, 0], group, expm.taylor_action_terms(torch.float64),
+            leaves, freqs, data)
+    res["dense_vs_taylor"] = float((dense - taylor).abs().max())
+    res["dense_s"] = dense_s
+    rng = np.random.default_rng(SEED)
+    gens = rng.exponential(1.0, size=(EXPM_GENERATORS, 61, 61)) * rng.uniform(
+        0.0, 1.0, size=(EXPM_GENERATORS, 61, 61)) ** 3
+    gens *= 10.0 ** rng.uniform(-3, 1, size=(EXPM_GENERATORS, 1, 1))
+    idx = np.arange(61)
+    gens[:, idx, idx] = 0.0
+    gens[:, idx, idx] = -gens.sum(-1)
+    times = rng.uniform(0.01, 2.0, size=EXPM_GENERATORS)
+    with torch.no_grad():
+        g_card = torch.as_tensor(gens, device=DEVICE)
+        e_card = expm.expm(g_card).cpu().numpy()
+        p_card = expm.transition_matrix(g_card, torch.as_tensor(times, device=DEVICE)).cpu().numpy()
+    res["expm_vs_scipy"] = float(np.abs(e_card - np.stack([sla.expm(g) for g in gens])).max())
+    res["transition_vs_scipy"] = float(np.abs(
+        p_card - np.stack([sla.expm(g * tt) for g, tt in zip(gens, times)])).max())
+    gamma = []
+    for alpha in GAMMA_ALPHAS:
+        row = []
+        for device in (DEVICE, "cpu"):
+            a = torch.tensor(alpha, dtype=torch.float64, device=device, requires_grad=True)
+            rates, _ = discretized_gamma(a, 4)
+            grad = torch.autograd.grad((rates * torch.arange(1, 5, device=device)).sum(), a)[0]
+            row.append((rates.detach().cpu().numpy(), float(grad)))
+        gamma.append(max(float(np.abs(row[0][0] - row[1][0]).max()),
+                         abs(row[0][1] - row[1][1]) / max(abs(row[1][1]), 1e-300)))
+    res["gamma_card_vs_host"] = max(gamma)
+    ref, qry = "ATGAAACCCGGGTTTCAGCTAGGT", "ATGAACCCGGGTTTTCAGCTGGT"
+    res["align_codon"] = align.align_codon(ref, qry)
+    res["align_sequences"] = align.align_sequences("GGGGACGTACGTGGGG", "ACGTTACGT")
+    aligners_equal = (res["align_codon"] == align.align_codon(ref, qry, use_native=False)
+                      and res["align_sequences"] == align.align_sequences(
+                          "GGGGACGTACGTGGGG", "ACGTTACGT", use_native=False))
+    gfilt = DataFilter.from_alignment(read_alignment(_recombinant_alignment(tmp)), "nucleotide")
+    t0 = time.perf_counter()
+    native_d = gard.tn93_distance(gfilt)
+    res["tn93_native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numpy_d = gard.tn93_distance(gfilt, use_native=False)
+    res["tn93_numpy_s"] = time.perf_counter() - t0
+    res["tn93_diff"] = float(np.abs(native_d - numpy_d).max())
+    log(f"[engine] (f) dense per-site route vs Taylor route on {DENSE_SITES} sites (fp64): "
+        f"{res['dense_vs_taylor']:.3e} (bound {DENSE_BOUND}; dense {dense_s:.3f} s with the "
+        f"propagators); expm / transition_matrix vs scipy on {EXPM_GENERATORS} 61 x 61 "
+        f"generators {res['expm_vs_scipy']:.3e} / {res['transition_vs_scipy']:.3e} (bound "
+        f"{EXPM_BOUND}); discretized gamma card vs host {res['gamma_card_vs_host']:.3e} "
+        f"(bound {GAMMA_BOUND}); native aligners equal to their mirrors {aligners_equal} "
+        f"(codon {res['align_codon']}); TN93 native vs NumPy {res['tn93_diff']:.3e} (bound "
+        f"{TN93_BOUND}; {res['tn93_native_s']:.4f} s against {res['tn93_numpy_s']:.4f} s)")
+    check(res["dense_vs_taylor"] <= DENSE_BOUND, "dense per-site route differs from Taylor")
+    check(max(res["expm_vs_scipy"], res["transition_vs_scipy"]) <= EXPM_BOUND,
+          "expm differs from scipy")
+    check(res["gamma_card_vs_host"] <= GAMMA_BOUND, "discretized gamma: card differs from host")
+    check(aligners_equal, "native aligners differ from their Python mirrors")
+    check(res["tn93_diff"] <= TN93_BOUND, "native TN93 differs from NumPy TN93")
+    return res
+
+
+def phase_engine(torch, aln, fasta: str, newick: str, tmp: str) -> dict:
+    """Phase 29, the rest of the engine at full width: (a) the Binary model
+    (K1 at 2 states), (b) GTR under constraints, (c) MG94xREV and
+    MG94xREVLocal, (d) the covariance and a profile CI, (e) the marginal
+    ancestral posteriors, (f) the small checks; K1 launches counted from 0
+    around (a)-(e)."""
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    res, stages = {}, {}
+    level_products.launches = 0
+
+    def stage(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    res["binary"] = stage("binary", _engine_binary, torch, newick, tmp)
+    res["constraints"] = stage("constraints", _engine_constraints, torch, fasta, newick)
+    res["codon"], keep = stage("codon", _engine_codon, torch, aln, newick)
+    res["uncertainty"] = stage("uncertainty", _engine_uncertainty, torch, keep)
+    res["marginal"] = stage("marginal", _engine_marginal, torch, keep)
+    res["level_products_launches"] = level_products.launches
+    res["small"] = stage("small", _engine_small, torch, keep, tmp)
+    res["stages_s"] = stages
+    log(f"[engine] stages, s: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; K1 launches {res['level_products_launches']}")
+    check(res["level_products_launches"] > 0, "the engine phase launched no K1")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -4571,6 +5111,10 @@ def main(argv) -> int:
                       if r["shape"] == list(KERNEL_SHAPES[3]) and r["dtype"] == "float32")
     protein_eval = next(r for r in record["kernels"]["evaluation"]
                         if r["states"] == 20 and r["dtype"] == "float32")
+    binary = next(r for r in record["kernels"]["shapes"]
+                  if r["shape"] == list(KERNEL_SHAPES[5]) and r["dtype"] == "float32")
+    binary_eval = next(r for r in record["kernels"]["evaluation"]
+                       if r["states"] == 2 and r["dtype"] == "float32")
     if not checks:
         # K1 inside a real fp32 evaluation (phase 5's profile) against phase
         # 3's per-level times on fresh random inputs, level by level
@@ -4597,6 +5141,10 @@ def main(argv) -> int:
         "nucleotide_ms": nucleotide["ms"], "nucleotide_plain_ms": nucleotide["plain_ms"],
         "nucleotide_bound_ms": nucleotide["bound_ms"],
         "nucleotide_library_ms": nucleotide["library_ms"],
+        "binary_ms": binary["ms"], "binary_plain_ms": binary["plain_ms"],
+        "binary_bound_ms": binary["bound_ms"], "binary_library_ms": binary["library_ms"],
+        "binary_max_abs_err": binary["max_abs_err"], "binary_eval_ms": binary_eval["ms"],
+        "binary_eval_bound_ms": binary_eval["bound_ms"],
         "launches_by_phase": by_phase,
     } for name in SOURCES]
     if not checks:
@@ -4612,7 +5160,7 @@ def main(argv) -> int:
 
 
 def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
-    """Phases 4-28 into ``record``; returns the names of those that drive a
+    """Phases 4-29 into ``record``; returns the names of those that drive a
     method through its entry point (each reads K1's launch count around
     its run)."""
     def timed(name, fn, *args):
@@ -4622,6 +5170,20 @@ def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
         log(f"[time] {name}: {record['phase_s'][name]:.2f} s")
         torch.cuda.empty_cache()
 
+    def fused(name, fn, *args):
+        # with the fused Nelder-Mead probes (HYPHY_TPU_NM_FUSED=1): phases
+        # whose per-site fits hold at most ~512 items, where an evaluation is
+        # host launch time and the fused body takes 0.30x the sequential
+        # probes' time at 128 sites (PERF.md); the results are the same bit
+        # for bit (the fused-probe phase's check)
+        os.environ["HYPHY_TPU_NM_FUSED"] = "1"
+        log(f"[{name}] fused Nelder-Mead probes (HYPHY_TPU_NM_FUSED=1)")
+        try:
+            timed(name, fn, *args)
+        finally:
+            del os.environ["HYPHY_TPU_NM_FUSED"]
+        record[name]["fused_probes"] = True
+
     aln, newick, fasta, tree_path = _write_inputs(tmp)
     timed("main_path", phase_main_path, torch, fasta, tree_path, tmp, full_fit)
     data, mgp = record["main_path"].pop("data"), record["main_path"].pop("mg94_fit")
@@ -4630,26 +5192,19 @@ def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
     timed("fused_probes", phase_fused_probes, torch, data, mgp)
     del data, mgp
     timed("partitions", phase_partitions, torch, aln, newick, tmp, full_fit)
-    # phase 8 takes the fused Nelder-Mead probes: its CI is ~60 batched fits
-    # of 128 sites, where one evaluation is host launch time (PERF.md)
-    os.environ["HYPHY_TPU_NM_FUSED"] = "1"
-    log("[options] fused Nelder-Mead probes (HYPHY_TPU_NM_FUSED=1)")
-    try:
-        timed("options", phase_options, torch, tmp)
-    finally:
-        del os.environ["HYPHY_TPU_NM_FUSED"]
-    record["options"]["fused_probes"] = True
+    # phase 8's CI is ~60 batched fits of 128 sites
+    fused("options", phase_options, torch, tmp)
     sim_aln, sim_fasta, sim_tree = _planted_alignment(tmp)
     timed("slac", phase_slac, torch, sim_fasta, sim_tree, tmp)
     timed("simulate", phase_simulate, torch, sim_aln, sim_fasta, sim_tree, tmp)
-    timed("meme", phase_meme, torch, sim_aln, sim_tree, tmp)
+    fused("meme", phase_meme, torch, sim_aln, sim_tree, tmp)
     timed("fubar", phase_fubar, torch, sim_fasta, sim_tree, tmp)
     timed("bstill", phase_bstill, torch, sim_aln, sim_tree, tmp)
     con_aln, con_fasta, con_tree = _contrast_alignment(tmp)
-    timed("contrast_fel", phase_contrast_fel, torch, con_aln, con_tree, tmp)
-    timed("contrast_meme", phase_contrast_meme, torch, con_aln, con_tree, tmp)
+    fused("contrast_fel", phase_contrast_fel, torch, con_aln, con_tree, tmp)
+    fused("contrast_meme", phase_contrast_meme, torch, con_aln, con_tree, tmp)
     timed("meme_resample", phase_meme_resample, torch, sim_aln, sim_tree, tmp)
-    timed("prime", phase_prime, torch, sim_aln, sim_tree, tmp)
+    fused("prime", phase_prime, torch, sim_aln, sim_tree, tmp)
     timed("busted", phase_busted, torch, sim_fasta, sim_tree, tmp)
     timed("busted_e", phase_busted_e, torch, sim_aln, sim_tree, tmp)
     timed("busted_ph", phase_busted_ph, torch, con_aln, con_tree, tmp)
@@ -4662,10 +5217,11 @@ def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
     timed("fmm", phase_fmm, torch, fasta, tree_path, tmp)
     timed("bgm", phase_bgm, torch, sim_aln, sim_tree, tmp)
     timed("gard", phase_gard, torch, tmp)
+    timed("engine", phase_engine, torch, aln, fasta, newick, tmp)
     return ("main_path", "partitions", "options", "slac", "simulate", "meme", "fubar",
             "bstill", "contrast_fel", "contrast_meme", "meme_resample", "prime", "busted",
             "busted_e", "busted_ph", "relax", "relax_groups", "absrel", "leisr", "fade", "fmm",
-            "bgm", "gard")
+            "bgm", "gard", "engine")
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

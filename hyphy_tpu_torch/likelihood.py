@@ -6,14 +6,17 @@ Counterpart of ``hyphy_tpu/likelihood.py`` (the reference's
 level-by-level pruning through the K1 kernel (a model's site-level rate
 classes folded into K1's node axis and mixed in fp64), then the
 pattern-weighted reduction in fp64 — and ``fit`` maximizes it with the
-host L-BFGS-B driver over autograd gradients.  ``pattern_bucket``, ``schedule_pad``,
-``covariance_matrix`` and ``profile_ci`` are not ported yet.
+host L-BFGS-B optimizer over autograd gradients, under parameter constraints
+(``models/constraints.py``) if asked; ``covariance_matrix`` (an autograd
+Hessian) and ``profile_ci`` give the uncertainty of a fit.
+``pattern_bucket`` and ``schedule_pad`` are not ported: they pad GARD's
+candidates to shared shapes for XLA, and the port compiles nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,29 +161,50 @@ class LikelihoodFunction:
 
     # -- fitting ------------------------------------------------------------
 
+    def initial_parameters(self) -> Params:
+        return initial_params(self.specs, self.device)
+
     def fit(
         self,
         init: Optional[Params] = None,
         fixed: Optional[Dict[str, torch.Tensor]] = None,
         precision: Optional[float] = None,
         max_iterations: Optional[int] = None,
+        constraints: Optional[Sequence] = None,
     ) -> "FitResult":
         """Maximize lnL over the free parameters (reference Optimize():
-        here bounded L-BFGS-B on autograd gradients)."""
+        here bounded L-BFGS-B on autograd gradients).
+
+        ``constraints``: objects from :mod:`hyphy_tpu_torch.models.constraints`
+        (``Proportional``, ``MolecularClock``) applied in order — each
+        removes its dependent keys from the free set and rebuilds them
+        inside the objective (the reference's ``ReplicateConstraint`` /
+        ``MolecularClock`` dependent variables, re-evaluated in
+        ``PreCompute``, likefunc.h:419) and on the result."""
         from hyphy_tpu_torch.optimize.core import maximize
 
         def as_param(v):
             return torch.as_tensor(v, dtype=torch.float64, device=self.device)
 
-        params = initial_params(self.specs, self.device)
+        constraints = list(constraints or [])
+        specs = dict(self.specs)
+        for c in constraints:
+            specs = c.transform_specs(specs)
+        params = initial_params(specs, self.device)
         if init:
             params.update({k: as_param(v) for k, v in init.items() if k in params})
         fixed = {k: as_param(v) for k, v in (fixed or {}).items()}
-        free_specs = {k: v for k, v in self.specs.items() if k not in fixed}
+        free_specs = {k: v for k, v in specs.items() if k not in fixed}
         free_init = {k: params[k] for k in free_specs}
 
+        def constrained(free: Params) -> Params:
+            merged = {**free, **fixed}
+            for c in constraints:
+                merged = c.apply(merged)
+            return merged
+
         def objective(free: Params) -> torch.Tensor:
-            return self.loglik({**free, **fixed})
+            return self.loglik(constrained(free))
 
         best, lnl, n_iter = maximize(
             objective,
@@ -190,13 +214,99 @@ class LikelihoodFunction:
             max_iterations=max_iterations,
             device=self.device,
         )
+        with torch.no_grad():
+            final = constrained(best)
         return FitResult(
-            params={**best, **fixed},
+            params=final,
             loglik=float(lnl),
             n_free_parameters=count_parameters(free_specs),
             n_iterations=int(n_iter),
             lf=self,
         )
+
+    # -- uncertainty --------------------------------------------------------
+
+    def covariance_matrix(
+        self, params: Params, keys: Optional[Sequence[str]] = None
+    ) -> Tuple[np.ndarray, List[str]]:
+        """Asymptotic MLE covariance = inverse observed information
+        (reference ``CovarianceMatrix``, ``likefunc.cpp:6535``, Hessian
+        mode).  The Hessian is autograd's, in fp64 parameters, through the
+        pruning's twice-differentiable K1 (the reference takes finite
+        differences); the pseudo-inverse guards boundary and flat
+        directions.  Returns (cov [k, k], flattened key labels)."""
+        keys = list(keys or self.specs)
+        labels: List[str] = []
+        flat0, shapes = [], []
+        base = {k: torch.as_tensor(v, device=self.device).detach() for k, v in params.items()}
+        for k in keys:
+            n = base[k].numel()
+            labels.extend([k] if n == 1 else [f"{k}[{j}]" for j in range(n)])
+            flat0.append(base[k].to(torch.float64).reshape(-1))
+            shapes.append(base[k].shape)
+        x0 = torch.cat(flat0)
+
+        def unflatten(x):
+            out = dict(base)
+            off = 0
+            for k, shp in zip(keys, shapes):
+                n = shp.numel()
+                out[k] = x[off: off + n].reshape(shp)
+                off += n
+            return out
+
+        hess = torch.autograd.functional.hessian(lambda x: self.loglik(unflatten(x)), x0)
+        info = -hess.detach().cpu().numpy()
+        return np.linalg.pinv(info), labels
+
+    def profile_ci(
+        self,
+        params: Params,
+        key: str,
+        loglik_mle: float,
+        level: float = 0.95,
+        iters: int = 60,
+    ) -> Tuple[float, float]:
+        """Profile-likelihood CI for a scalar parameter with the others
+        FIXED at their MLEs (reference ``COVARIANCE_PRECISION`` < 1 path,
+        ``likefunc.cpp:6565``; the fixed-nuisance profile the per-site
+        methods take through ``parameters.GetProfileCI``): bracket each side
+        by doubling steps, then bisect to the chi-square drop."""
+        from scipy.stats import chi2 as _c2
+
+        drop = float(_c2.ppf(level, 1)) / 2.0
+        spec = self.specs[key]
+        target = loglik_mle - drop
+        mle = float(torch.as_tensor(params[key]))
+
+        def lnl_at(v: float) -> float:
+            p = dict(params)
+            p[key] = torch.tensor(v, dtype=torch.float64, device=self.device)
+            with torch.no_grad():
+                return float(self.loglik(p))
+
+        def search(side: int) -> float:
+            bound = spec.upper if side > 0 else spec.lower
+            far = mle
+            for _ in range(40):
+                step = max(abs(far), 1e-3)
+                far = float(np.clip(far + side * step, spec.lower, spec.upper))
+                if lnl_at(far) < target or far == bound:
+                    break
+            if lnl_at(far) > target:
+                return float(far)  # the CI reaches the bound
+            near = mle
+            for _ in range(iters):
+                mid = 0.5 * (near + far)
+                if lnl_at(mid) > target:
+                    near = mid
+                else:
+                    far = mid
+                if abs(far - near) < 1e-10 * max(1.0, abs(mle)):
+                    break
+            return 0.5 * (near + far)
+
+        return search(-1), search(+1)
 
 
 @dataclasses.dataclass
@@ -206,3 +316,8 @@ class FitResult:
     n_free_parameters: int
     n_iterations: int
     lf: Optional[LikelihoodFunction] = None
+
+    def aic_c(self, n_samples: int) -> float:
+        """AIC-c = 2p - 2lnL + 2p(p+1)/(n-p-1) (reference: aBSREL/GARD)."""
+        p = self.n_free_parameters
+        return 2 * p - 2 * self.loglik + 2 * p * (p + 1) / max(n_samples - p - 1, 1)

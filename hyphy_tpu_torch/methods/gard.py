@@ -10,8 +10,9 @@ genetic algorithm over breakpoint vectors for N >= 2 (GARD.bf:415-560).
 Breakpoints lie on variable sites only.  ``checkpoint=path`` keeps every
 evaluated model and resumes from it (GARD.bf:204-207).
 
-The scan, the genetic algorithm, the c-AIC and the TN93 distances (the JAX
-package's numpy form) are copied as they are, with the same order of draws
+The scan, the genetic algorithm, the c-AIC and the TN93 distances (host
+C++, ``native/datapath.cpp``, as in the JAX package; its numpy form kept as
+the plain version) are copied as they are, with the same order of draws
 from the same generator, so a run resumed from another run's checkpoint
 takes the same path.  The one repair, where the JAX package's seeding of a
 population would never end, changes no draw of a run that package
@@ -34,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from hyphy_tpu_torch import native
 from hyphy_tpu_torch.config import resolve_device
 from hyphy_tpu_torch.data.alignment import read_alignment
 from hyphy_tpu_torch.data.filter import DataFilter
@@ -43,18 +45,27 @@ from hyphy_tpu_torch.models.dna import GTR
 from hyphy_tpu_torch.tree.topology import infer_nj_tree
 
 
-def tn93_distance(filt: DataFilter) -> np.ndarray:
+def tn93_distance(filt: DataFilter, use_native: bool = True) -> np.ndarray:
     """Pairwise TN93 distances (the reference's default NJ distance,
     ``tree.infer.NJ`` -> distances) over the sites both sequences resolve;
-    a saturated pair, or one with no such site, gets 5.0.  The JAX
-    package's numpy form; its native path (``datapath.cpp``) gives the same
-    distances."""
+    a saturated pair, or one with no such site, gets 5.0.  As the JAX
+    package does (``gard.py:54``), through the host C++ kernel
+    (``native/datapath.cpp``; a failed build raises); ``use_native=False``
+    takes its NumPy mirror, the plain version the tests hold it to."""
     masks = filt.char_masks  # [taxa, raw sites] 4-bit nucleotide masks
-    n = masks.shape[0]
     # resolved states only (single-bit masks)
     state = np.full(masks.shape, -1, dtype=np.int8)
     for bit, s in zip((1, 2, 4, 8), range(4)):
         state[masks == bit] = s
+    if use_native:
+        return native.tn93_distances(state, saturation=5.0)
+    return _tn93_numpy(state)
+
+
+def _tn93_numpy(state: np.ndarray) -> np.ndarray:
+    """The NumPy TN93 of the JAX package's ``tn93_distance`` on [taxa,
+    sites] int8 states (negative = unresolved)."""
+    n = state.shape[0]
     d = np.zeros((n, n))
     for i in range(n):
         for j in range(i + 1, n):

@@ -74,10 +74,13 @@ class SubstitutionModel:
         eigendecomposition (``torch.linalg.eigh`` as much as JAX's) divides
         by eigenvalue gaps, so any degenerate-spectrum point (JC69 always;
         HKY85 at kappa=1) yields NaN gradients and silently kills the fit.
-        Codon models keep the spectral route via their own propagators."""
+        Codon models keep the spectral route via their own propagators; a
+        non-reversible generator of more states takes the scaling-and-
+        squaring Taylor route of :func:`expm_ops.transition_matrix`, one
+        matrix per branch, as in the JAX package."""
         if q.shape[-1] <= 20:
             return expm_ops.shared_taylor_propagators(q, t)
-        if not self.reversible:
-            raise NotImplementedError("non-reversible models are not ported yet")
-        left, lam, right = expm_ops.reversible_spectral(q, pi)
-        return expm_ops.spectral_propagators(left, lam, right, t)
+        if self.reversible:
+            left, lam, right = expm_ops.reversible_spectral(q, pi)
+            return expm_ops.spectral_propagators(left, lam, right, t)
+        return expm_ops.transition_matrix(q, t)

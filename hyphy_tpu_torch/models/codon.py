@@ -1,10 +1,11 @@
 """Codon substitution models: the MG94xREV family.
 
 Counterpart of ``hyphy_tpu/models/codon.py``: ``MG94Base`` with the
-multiple-hit basis matrices, ``MG94xREVPartitionedOmega`` with its
-``multiple_hits`` option, and FitMultiModel's ``MG94xREVMultiHit`` and
-``MG94xREVMultiHitGDD`` (a site-level omega distribution of K classes).
-``MG94xREV`` and ``MG94xREVLocal`` are not ported yet.
+multiple-hit basis matrices and the grouped and per-branch propagators,
+``MG94xREV`` (one omega) and ``MG94xREVLocal`` (per-branch alpha and
+beta), ``MG94xREVPartitionedOmega`` with its ``multiple_hits`` option,
+and FitMultiModel's ``MG94xREVMultiHit`` and ``MG94xREVMultiHitGDD`` (a
+site-level omega distribution of K classes).
 
 Q construction (parity-critical, reference ``MG_REV.bf:66-105``): entry
 (x -> y) is nonzero iff codons differ at exactly one nucleotide position,
@@ -144,6 +145,31 @@ class MG94Base(SubstitutionModel):
         perm = np.argsort(np.concatenate(order), kind="stable")
         return torch.cat(parts, dim=0)[torch.as_tensor(perm, device=self.device)]
 
+    def propagators_local(self, bases, alpha_b: torch.Tensor,
+                          beta_b: torch.Tensor) -> torch.Tensor:
+        """P_b = expm(alpha_b Q_syn + beta_b Q_nonsyn), one generator per
+        branch (``[B, S, S]``), from the bases ``(Q_syn, Q_nonsyn)`` (the
+        JAX package passes the parameters and builds the single-hit bases
+        here).
+
+        Route: in fp64 the JAX package's — a batched ``eigh`` of the B
+        symmetrised generators and spectral propagators at time 1.  In fp32
+        the batched shared-power Taylor series
+        (:func:`expm_ops.taylor_propagators_batched`, one generator per
+        family at time 1), as :meth:`propagators_grouped` takes the Taylor
+        route in fp32: the JAX package takes ``eigh`` in every dtype,
+        though an fp32 eigendecomposition of a 61-state generator loses
+        ~1e-2, which its own grouped route avoids."""
+        q_syn, q_non = bases
+        q = fill_diagonal_from_rows(
+            alpha_b[:, None, None] * q_syn[None] + beta_b[:, None, None] * q_non[None]
+        )
+        ones = torch.ones_like(alpha_b)
+        if q.dtype != torch.float64:
+            return expm_ops.taylor_propagators_batched(q, ones)
+        left, lam, right = expm_ops.reversible_spectral(q, self.frequencies)
+        return expm_ops.spectral_propagators(left, lam, right, ones)
+
     def rate_per_branch(self, bases, alpha_b, beta_b) -> torch.Tensor:
         """Branch length in expected substitutions per NUCLEOTIDE site under
         the bases ``(Q_syn, Q_nonsyn)`` — codon-model branch lengths carry a
@@ -218,6 +244,49 @@ class MG94Base(SubstitutionModel):
         zeros = torch.zeros((self.n_states, self.n_states), dtype=dtype, device=self.device)
         idx = (tbl["pair_i"], tbl["pair_j"])
         return zeros.index_put(idx, entries * syn), zeros.index_put(idx, entries * (1.0 - syn))
+
+
+class MG94xREV(MG94Base):
+    """'Global' model type: one omega, a per-branch time ``t``
+    (reference: model_type = terms.global).  Propagators by
+    :meth:`propagators_grouped`: fp64 spectral, fp32 shared-power Taylor."""
+
+    def parameter_specs(self, n_branches: int) -> Specs:
+        specs = self.theta_specs()
+        specs["omega"] = ParamSpec(init=0.25, lower=0.0, upper=10000.0)
+        specs["t"] = ParamSpec(init=0.05, lower=0.0, upper=10000.0, shape=(n_branches,))
+        return specs
+
+    def build(self, params: Params, n_branches: int) -> ModelOutput:
+        p = self.propagators_grouped(
+            self.basis_matrices(params), params["t"], params["omega"][None],
+            np.zeros(n_branches, dtype=np.int64),
+        )
+        return ModelOutput(p_matrices=p, root_freqs=self.frequencies)
+
+    def branch_lengths(self, params: Params) -> torch.Tensor:
+        return self.rate_per_branch(
+            self.basis_matrices(params), params["t"], params["t"] * params["omega"]
+        )
+
+
+class MG94xREVLocal(MG94Base):
+    """'Local' model type: per-branch (alpha, beta) = (synRate, nonSynRate),
+    one generator per branch (:meth:`propagators_local`: fp64 spectral, one
+    ``eigh`` per branch; fp32 batched Taylor)."""
+
+    def parameter_specs(self, n_branches: int) -> Specs:
+        specs = self.theta_specs()
+        specs["alpha"] = ParamSpec(init=0.05, lower=0.0, upper=10000.0, shape=(n_branches,))
+        specs["beta"] = ParamSpec(init=0.05, lower=0.0, upper=10000.0, shape=(n_branches,))
+        return specs
+
+    def build(self, params: Params, n_branches: int) -> ModelOutput:
+        p = self.propagators_local(self.basis_matrices(params), params["alpha"], params["beta"])
+        return ModelOutput(p_matrices=p, root_freqs=self.frequencies)
+
+    def branch_lengths(self, params: Params) -> torch.Tensor:
+        return self.rate_per_branch(self.basis_matrices(params), params["alpha"], params["beta"])
 
 
 class MG94xREVPartitionedOmega(MG94Base):

@@ -76,6 +76,15 @@ def f3x4(filt, gc: GeneticCode) -> Tuple[np.ndarray, np.ndarray]:
     return obs, _codon_from_corners(obs, gc)
 
 
+def f1x4(filt, gc: GeneticCode) -> Tuple[np.ndarray, np.ndarray]:
+    """F1x4: the pooled nucleotide frequencies at all three codon positions.
+    Returns (corner_freqs [4,3], codon_freqs [n_sense]); ``filt`` is one
+    DataFilter or a list of them (pooled)."""
+    pooled = _combined_harvest(filt, 1, 1, False)[:, 0]
+    corners = np.tile(pooled[:, None], (1, 3))
+    return corners, _codon_from_corners(corners, gc)
+
+
 def _stick_break(p: torch.Tensor) -> torch.Tensor:
     """[3] fractions in (0,1) -> [4] frequencies summing to 1."""
     one = torch.ones((1,), dtype=p.dtype, device=p.device)

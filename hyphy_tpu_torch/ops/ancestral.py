@@ -23,7 +23,8 @@ chunks (:func:`pruning._chunked_product`), where the reference's product of
 so no argmax moves, and nodes of at most four children keep the
 reference's arithmetic exactly.
 
-:func:`branch_flux_vectors` (BUSTED's per-branch class profiles) runs an
+:func:`branch_flux_vectors` (BUSTED's per-branch class profiles, and
+:func:`marginal_posteriors` on top of it) runs an
 inside and an outside pass on the same level plans, with the same repair:
 the reference multiplies all of a node's children (inside) and all of a
 child's siblings (outside) before it renormalises.
@@ -366,3 +367,40 @@ def branch_flux_vectors(
     log_up[root_slot] = 0.0
     node_slots = torch.as_tensor(data.node_slots, device=device)
     return clv[node_slots], log_clv[node_slots], up[node_slots], log_up[node_slots]
+
+
+def marginal_posteriors(
+    p_matrices: torch.Tensor,     # [n_nodes(+1), S, S]; row above each node
+    leaf_partials: torch.Tensor,  # [n_leaves, patterns, S]
+    root_freqs: torch.Tensor,     # [S]
+    data: PruningData,
+) -> torch.Tensor:
+    """Posterior state probabilities ``P(state_n = s | data)`` of every
+    internal node, ``[n_internal, patterns, S]`` in node-id order, as the
+    product of the node's inside vector (its CLV) and its outside vector
+    (reference: ``RecoverAncestralSequencesMarginal``,
+    ``likefunc2.cpp:932``; the JAX package's ``marginal_posteriors``, which
+    also takes the tree's children and parents: here the level plans carry
+    them).
+
+    Both vectors come from :func:`branch_flux_vectors`: the child-side
+    outside vector of node n is its parent-side vector pushed through its
+    branch, ``up[n] @ P[n]`` (the root's is pi), and the log-scales of both
+    are uniform over states, so they cancel in the normalisation.  The JAX
+    package multiplies all of a node's children (inside) and all of a
+    child's siblings (outside) before it renormalises, so at a wide
+    polytomy its products underflow and the posteriors fall to 0; here
+    nodes of more than four children renormalise every four, and nodes of at
+    most four keep its products in its order."""
+    n_nodes, n_leaves = data.n_nodes, data.n_leaves
+    dtype = leaf_partials.dtype
+    clv, _, up, _ = branch_flux_vectors(p_matrices, leaf_partials, root_freqs, data)
+    internal = slice(n_leaves, n_nodes - 1)                      # the root is the last node
+    outside = torch.empty_like(clv[n_leaves:])
+    outside[:-1] = torch.bmm(up[internal], p_matrices[internal].to(dtype))
+    outside[-1] = root_freqs.to(dtype)
+    del up
+    joint = clv[n_leaves:] * outside
+    del clv, outside
+    z = torch.clamp_min(torch.sum(joint, dim=-1, keepdim=True), torch.finfo(dtype).tiny)
+    return joint / z

@@ -2,6 +2,9 @@
 
 Counterpart of ``hyphy_tpu/ops/expm.py``, in plain PyTorch (no kernel yet):
 
+  * :func:`expm` / :func:`transition_matrix` — batched scaling-and-squaring
+    with a fixed Taylor core and a masked squaring ladder, for any square
+    matrix (the non-reversible models' propagators);
   * :func:`shared_taylor_propagators` — ``P(t_b) = expm(q t_b)`` for ONE
     generator and many branch times, from shared powers of ``q`` and a
     shared binary squaring ladder (reference semantics of
@@ -25,6 +28,45 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+# enough Taylor terms that a matrix scaled to ||A|| <= 1/2 converges past
+# fp64 machine epsilon: 0.5^18/18! ~ 2e-21
+_TAYLOR_TERMS = 18
+# squaring ladder depth: supports ||Q*t|| up to 2^_MAX_SQUARINGS / 2
+_MAX_SQUARINGS = 14
+
+
+def expm(a: torch.Tensor) -> torch.Tensor:
+    """Matrix exponential of ``a`` ([..., n, n]), batched over leading dims
+    (the JAX package's ``expm``, ``hyphy_tpu/ops/expm.py:32``).
+
+    Scaling-and-squaring: scale by 2^-s so the scaled inf-norm is <= 1/2,
+    run a fixed-length Horner Taylor evaluation, then a masked squaring
+    ladder (each batch element squares its own s times, at most 14).  The
+    row renormalisation of a transition matrix is the caller's
+    (:func:`transition_matrix`): ``expm`` also serves non-generators.
+    """
+    dtype, n = a.dtype, a.shape[-1]
+    norm = torch.amax(torch.sum(torch.abs(a), dim=-1), dim=-1)          # [...]
+    s = torch.ceil(torch.log2(torch.clamp_min(norm, 1e-30)) + 1.0)
+    s = torch.clamp(s, 0, _MAX_SQUARINGS).to(torch.int64)
+    scale = torch.exp2(-s.to(dtype))
+    a_scaled = a * scale[..., None, None]
+    eye = torch.eye(n, dtype=dtype, device=a.device).expand(a.shape)
+    # Horner: exp(A) ~ I + A(I + A/2 (I + A/3 (...)))
+    acc = eye
+    for k in range(_TAYLOR_TERMS, 0, -1):
+        acc = eye + (acc @ a_scaled) / k
+    for k in range(_MAX_SQUARINGS):
+        acc = torch.where((k < s)[..., None, None], acc @ acc, acc)
+    return acc
+
+
+def transition_matrix(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """P(t) = expm(Q t) for Q [..., n, n] and t broadcastable to [...],
+    made exactly row-stochastic (the non-reversible models' route)."""
+    return row_renormalize(expm(q * t[..., None, None]))
 
 
 def row_renormalize(p: torch.Tensor) -> torch.Tensor:

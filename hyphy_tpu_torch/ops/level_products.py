@@ -41,6 +41,9 @@ CPU tensor — and only there — it runs the plain version
 :func:`level_products_reference`.  The backward is the VJP of the plain
 version on either device, as the JAX package's custom VJP is
 (``pallas_pruning.py:80-82``); it has no kernel of its own there either.
+Under ``create_graph`` it is taken on the saved inputs with a graph, so a
+Hessian through the pruning (``LikelihoodFunction.covariance_matrix``) is
+the plain version's.
 ``level_products.launches`` counts kernel launches.
 """
 
@@ -140,6 +143,17 @@ class _LevelProducts(torch.autograd.Function):
     def backward(ctx, grad):
         cc, cp = ctx.saved_tensors
         wanted = ctx.needs_input_grad
+        if torch.is_grad_enabled():
+            # under create_graph (a Hessian): the VJP of the plain version on
+            # the saved inputs themselves, so that its graph reaches them and
+            # the second derivative is the plain version's; detached copies
+            # would give a VJP with no graph, and every second derivative
+            # through the pruning would come out 0
+            inputs = [x for x, need in zip((cc, cp), wanted) if need]
+            got = iter(torch.autograd.grad(
+                level_products_reference(cc, cp), inputs, grad, create_graph=True
+            ))
+            return tuple(next(got) if need else None for need in wanted)
         with torch.enable_grad():
             cc_ = cc.detach().requires_grad_(wanted[0])
             cp_ = cp.detach().requires_grad_(wanted[1])

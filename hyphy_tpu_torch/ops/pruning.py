@@ -8,9 +8,12 @@ grid form that prunes many propagator sets over the same leaves at once
 (FUBAR's and B-STILL's grids); and the
 per-site routes FEL and MEME fit sites with, batched over sites, on the
 same schedule: ``single_site_log_likelihood_taylor`` (with its
-``mix_weights`` mode), ``single_site_log_likelihood_spectral`` and
-``single_site_log_likelihood_spectral_mixture``.  The padded ``lax.scan``
-variant (``schedule_pad``) is not ported yet; ``mixture_site_log_likelihoods``
+``mix_weights`` mode), ``single_site_log_likelihood_spectral``,
+``single_site_log_likelihood_spectral_mixture`` and
+``single_site_log_likelihood_dense`` (materialised propagators).  The
+padded ``lax.scan`` variant (``schedule_pad``) is not ported: it pads GARD's
+candidates to shared shapes for XLA, and the port compiles nothing;
+``mixture_site_log_likelihoods``
 (one pruning per rate class) is the grid form over the classes, as
 ``models/bsrel.py`` and ``likelihood.py``'s class mixture call it.
 
@@ -561,6 +564,43 @@ def single_site_log_likelihood_taylor(
             msg = torch.where((g_all[flat_b] == g)[:, None], action(v, coef, bit, bits, g), msg)
         msg = torch.clamp_min(msg[:, : w * karity], 0.0)
         prod, log_scale = _renormalise(msg, w, karity, log_scale)
+        buf[:, offset : offset + w] = prod
+    return _root_log_likelihood(buf, n_nodes, root_freqs, log_scale)
+
+
+def single_site_log_likelihood_dense(
+    p_matrices: torch.Tensor,      # [n_branches(+1), S, S] or [N, n_branches(+1), S, S]
+    leaf_vectors: torch.Tensor,    # [N, n_leaves, S] the sites' leaf partials
+    root_freqs: torch.Tensor,
+    data: PruningData,
+) -> torch.Tensor:
+    """Per-site lnL ``[N]`` from materialised per-branch transition
+    matrices, shared by every site or one set per site: each level gathers
+    its children's vectors and applies their branches' P as batched
+    matrix-vector products (the JAX package's one-site
+    ``single_site_log_likelihood_dense``, ``ops/pruning.py:334``, batched
+    over sites like the other per-site routes).  Padded children gather the
+    all-ones row through the identity at the scratch index."""
+    n_nodes = data.n_nodes
+    n_sites, _, states = leaf_vectors.shape
+    dtype, device = leaf_vectors.dtype, leaf_vectors.device
+    per_site = p_matrices.dim() == 4
+    p_sites = p_matrices if per_site else p_matrices[None]
+    p_own = p_sites[:, :n_nodes].to(dtype)
+    eye = torch.eye(states, dtype=dtype, device=device)
+    pad = eye.expand(p_own.shape[0], n_nodes + 1 - p_own.shape[1], states, states)
+    p_all = torch.cat([p_own, pad], dim=1)                             # [N or 1, n_nodes + 1, S, S]
+    buf = _site_buffer(leaf_vectors, n_nodes)
+    log_scale = torch.zeros((n_sites,), dtype=dtype, device=device)
+    for (offset, _, _), plan in zip(data.ulevels, data.plans):
+        w, karity = plan.child_storage.shape
+        cc = buf[:, plan.site_slots]                                   # [N, F', S]
+        cp = p_all[:, plan.site_branches]                              # [N or 1, F', S, S]
+        if per_site:
+            msg = torch.einsum("nfij,nfj->nfi", cp, cc)
+        else:                       # one P per child for every site: [F', S, S] x [F', S, N]
+            msg = torch.einsum("fij,nfj->nfi", cp[0], cc)
+        prod, log_scale = _renormalise(msg[:, : w * karity], w, karity, log_scale)
         buf[:, offset : offset + w] = prod
     return _root_log_likelihood(buf, n_nodes, root_freqs, log_scale)
 

@@ -137,3 +137,58 @@ def test_settled_zero_modes_reach_the_stationary_limit(omega):
     np.testing.assert_allclose(texpm.spectral_propagators(left, settled, right, t).numpy(),
                                texpm.spectral_propagators(left, lam, right, t).numpy(),
                                rtol=0, atol=1e-11)
+
+
+def _nonreversible_generators(rng, n, s):
+    """``n`` random non-reversible generators of ``s`` states, with rows of
+    very different speeds (norms from ~0.01 to ~3e3, so the squaring
+    ladder runs from 0 to 14 steps)."""
+    q = rng.exponential(1.0, size=(n, s, s)) * rng.uniform(0.0, 1.0, size=(n, s, s)) ** 3
+    q *= 10.0 ** rng.uniform(-3, 2, size=(n, 1, 1))
+    idx = np.arange(s)
+    q[:, idx, idx] = 0.0
+    q[:, idx, idx] = -q.sum(-1)
+    return q
+
+
+@pytest.mark.parametrize("s, n", [(4, 16), (61, 8)])
+def test_expm_and_transition_matrix(s, n):
+    """``expm`` and ``transition_matrix`` against ``scipy.linalg.expm`` (the
+    exact exponential, 1e-10 on every entry, absolute) and against the JAX
+    package's functions (the same scaling, series and ladder: 1e-12) on
+    non-reversible generators, the route of a non-reversible model."""
+    import scipy.linalg as sla
+
+    rng = np.random.default_rng(5)
+    q = _nonreversible_generators(rng, n, s)
+    t = rng.uniform(0.01, 2.0, size=n)
+    ours_e = texpm.expm(torch.from_numpy(q)).numpy()
+    ours_p = texpm.transition_matrix(torch.from_numpy(q), torch.from_numpy(t)).numpy()
+    jax_e = np.asarray(jexpm.expm(jnp.asarray(q)))
+    jax_p = np.asarray(jexpm.transition_matrix(jnp.asarray(q), jnp.asarray(t)))
+    exact_e = np.stack([sla.expm(m) for m in q])
+    exact_p = np.stack([sla.expm(m * tt) for m, tt in zip(q, t)])
+    np.testing.assert_allclose(ours_e, exact_e, atol=1e-10, rtol=0)
+    np.testing.assert_allclose(ours_p, exact_p, atol=1e-10, rtol=0)
+    np.testing.assert_allclose(ours_e, jax_e, atol=1e-12, rtol=0)
+    np.testing.assert_allclose(ours_p, jax_p, atol=1e-12, rtol=0)
+    np.testing.assert_allclose(ours_p.sum(-1), 1.0, atol=1e-14)
+
+
+def test_nonreversible_model_takes_the_transition_matrix_route():
+    """A non-reversible model of more than 20 states builds its propagators
+    by ``transition_matrix`` (the JAX package's ``models/base.py:90``),
+    where the port raised before; at 20 states or fewer every model takes
+    the shared-power Taylor route."""
+    import scipy.linalg as sla
+
+    from hyphy_tpu_torch.models.base import SubstitutionModel
+
+    class Irreversible(SubstitutionModel):
+        reversible = False
+
+    rng = np.random.default_rng(6)
+    q = _nonreversible_generators(rng, 1, 24)[0]
+    t = np.array([0.05, 0.3, 1.2])
+    p = Irreversible()._propagate(torch.from_numpy(q), None, torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(p, np.stack([sla.expm(q * tt) for tt in t]), atol=1e-10, rtol=0)

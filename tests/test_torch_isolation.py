@@ -29,8 +29,10 @@ print("LOADED", sorted(m for m in sys.modules if m.startswith("hyphy_tpu_torch."
 # modules added with FEL's options and CHARSET partitions, with SLAC, MEME
 # and simulate, with FUBAR, B-STILL and the contrast methods, with PRIME and
 # the BUSTED family, with RELAX and aBSREL, with the protein models,
-# LEISR, FADE and FitMultiModel, and with BGM and GARD, which the walk above
-# must reach
+# LEISR, FADE and FitMultiModel, with BGM and GARD, and with the rest of the
+# engine (constraints, the binary model, rate variation, linear algebra, the
+# SCFG, alignment, random deviates and the host C++ kernels), which the walk
+# above must reach
 _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batched",
                 "hyphy_tpu_torch.methods.fel", "hyphy_tpu_torch.io.json_out",
                 "hyphy_tpu_torch.ops.ancestral", "hyphy_tpu_torch.methods.counting",
@@ -46,7 +48,10 @@ _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batc
                 "hyphy_tpu_torch.methods.absrel", "hyphy_tpu_torch.models.protein",
                 "hyphy_tpu_torch.methods.leisr", "hyphy_tpu_torch.methods.fade",
                 "hyphy_tpu_torch.methods.fmm", "hyphy_tpu_torch.methods.bgm",
-                "hyphy_tpu_torch.methods.gard"]
+                "hyphy_tpu_torch.methods.gard", "hyphy_tpu_torch.models.constraints",
+                "hyphy_tpu_torch.models.binary", "hyphy_tpu_torch.models.rate_variation",
+                "hyphy_tpu_torch.ops.linalg", "hyphy_tpu_torch.scfg", "hyphy_tpu_torch.align",
+                "hyphy_tpu_torch.utils.random", "hyphy_tpu_torch.native"]
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -399,3 +404,74 @@ def test_bgm_and_gard_entry_points_raise_without_cuda(monkeypatch, tmp_path, met
     result = json.loads(out.read_text())
     assert ("fits" in result and "MLE" in result) if method == "bgm" else (
         "breakpointData" in result and result["input"]["number of sequences"] == 5)
+
+
+def test_engine_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The binary and codon models and the likelihood function raise
+    without CUDA; asked for the CPU, the constrained fit, the covariance,
+    the profile CI and the marginal posteriors run there, on the plain
+    version of K1 (no launch); a failed build of the host C++ kernels
+    raises, and GARD's TN93 then raises too instead of taking its NumPy
+    mirror."""
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.data.alignment import Alignment
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.data.genetic_code import GeneticCode
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.methods import gard
+    from hyphy_tpu_torch.models import frequencies
+    from hyphy_tpu_torch.models.binary import Binary
+    from hyphy_tpu_torch.models.codon import MG94xREV, MG94xREVLocal
+    from hyphy_tpu_torch.models.constraints import MolecularClock, Proportional
+    from hyphy_tpu_torch.models.dna import GTR
+    from hyphy_tpu_torch.ops import ancestral, cuda_build, level_products, pruning
+    from hyphy_tpu_torch.tree.topology import Tree
+    from hyphy_tpu_torch.utils.synth import synthetic_codon_alignment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(settings, "device", "cuda")
+    aln = Alignment(["a", "b", "c", "d"], ["0101100110", "0101110110", "1101100010",
+                                           "1001101010"])
+    filt = DataFilter.from_alignment(aln, "binary")
+    tree = Tree.from_newick("((a,b),(c,d))", leaf_order=filt.names)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Binary([0.5, 0.5])
+    codons = synthetic_codon_alignment(4, 5, seed=1)
+    cfilt = DataFilter.from_alignment(codons, "codon")
+    gc = GeneticCode("Universal")
+    corners, freqs = frequencies.f1x4(cfilt, gc)
+    for cls in (MG94xREV, MG94xREVLocal):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(gc, corners, freqs)
+    model = Binary([0.5, 0.5], device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LikelihoodFunction([Partition(filt, tree, model)])
+    lf = LikelihoodFunction([Partition(filt, tree, model)], device="cpu")
+    before = level_products.level_products.launches
+    res = lf.fit(max_iterations=3, constraints=[MolecularClock(tree)])
+    assert res.params["t"].device.type == "cpu"
+    cov, _ = lf.covariance_matrix(res.params, keys=["t"])
+    assert np.isfinite(cov).all()
+    nfilt = DataFilter.from_alignment(codons, "nucleotide")
+    ntree = Tree.from_newick("((t0,t1),(t2,t3))", leaf_order=nfilt.names)
+    gtr_lf = LikelihoodFunction([Partition(nfilt, ntree, GTR(np.full(4, 0.25), device="cpu"))],
+                                device="cpu")
+    gres = gtr_lf.fit(max_iterations=3,
+                      constraints=[Proportional("theta_AC", "theta_AT", ratio=2.0)])
+    lo, hi = gtr_lf.profile_ci(gres.params, "theta_CT", gres.loglik)
+    assert lo <= float(gres.params["theta_CT"]) <= hi
+    out = model.build(res.params, tree.n_branches)
+    post = ancestral.marginal_posteriors(
+        out.p_matrices, torch.as_tensor(filt.leaf_partials()), out.root_freqs,
+        pruning.build_pruning_data(tree, "cpu"))
+    assert post.device.type == "cpu"
+    assert level_products.level_products.launches == before
+    # the host kernels: a failed build raises, with no NumPy fallback
+    (tmp_path / "datapath.cpp").write_text("int broken(;\n")
+    monkeypatch.setattr(cuda_build, "NATIVE", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="failed for"):
+        gard.tn93_distance(DataFilter.from_alignment(codons, "nucleotide"))
+    assert gard.tn93_distance(DataFilter.from_alignment(codons, "nucleotide"),
+                              use_native=False).shape == (4, 4)
