@@ -232,9 +232,23 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      on 64 sites (1e-9), expm and transition_matrix against scipy on 64
      generators (1e-10), the discretized gamma and its alpha gradient card
      vs host (1e-10), the native aligners against their Python mirrors and
-     the native TN93 against NumPy's on phase 28's input (1e-12).
+     the native TN93 against NumPy's on phase 28's input (1e-12);
+ 30. the device mesh (``parallel/mesh.py``) over every visible card when
+     there are two or more, else over four shards of the one card (a line
+     says which): (a) MG94xREV at bench.py's point in fp32 and fp64,
+     sharded against unsharded (lnL 1e-12 relative, the site vectors at
+     their true width, the gradient 1e-6 / 1e-10 relative in norm), ms per
+     value and value+gradient, K1 launches per value on each device, peak
+     memory per device; (b) a mixed mesh (the card, the host) on 48 taxa x
+     128 codons in fp64 against the card alone; (c) ``fel.run`` capped on
+     that input over the mesh with the fused Nelder-Mead probes, its site
+     table against the unsharded per-site stage on the run's own global fit
+     (1e-9), and over the mixed mesh in fp64 on 24 codons (1e-6: the
+     host's and the card's eigensolvers round apart); the automatic
+     mesh keeps (a)'s gene on one card; (d) the BUSTED
+     mixture at 512 planted codons, value and gradient as in (a).
 
-``--precision-check`` runs phases 1-3 and then, in place of phases 4-29,
+``--precision-check`` runs phases 1-3 and then, in place of phases 4-30,
 FEL's per-site stage on phase 8's input at one capped global fit, run to
 convergence in fp32 and in fp64: the same p <= 0.1 set, and alpha and beta
 within the stated tolerance at all but 5% of the sites.  ``--busted-check``
@@ -259,7 +273,7 @@ aBSREL uncapped in fp32 on the episodic control along 32 taxa, 512 codons
 reported.
 
 K1's ``launches`` on the kernels line sum the phases that drive a method
-(4, 7-29, or the precision, BUSTED or RELAX check), each counted from 0
+(4, 7-30, or the precision, BUSTED or RELAX check), each counted from 0
 around its run.  It
 imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
@@ -525,6 +539,35 @@ EPISODIC_OMEGA, EPISODIC_SHARE, EPISODIC_BLOCK = 20.0, 0.05, 64
 # lnL is flat, at 0 or past the data's information, stop where each
 # precision's simplex ends)
 PRECISION_RATE_ATOL, PRECISION_RATE_RTOL, PRECISION_OUTLIER_SHARE = 0.01, 0.05, 0.05
+
+
+# phase 30, the device mesh: every visible card when there are two or more,
+# else MESH_SHARDS shards of the one card; (a) MG94xREV at bench.py's point in
+# fp32 and fp64, sharded against unsharded: lnL within MESH_LNL_REL
+# (relative), the site vectors equal in width and within MESH_SITE_REL
+# (relative to each pattern's lnL), the gradient reported; at a
+# well-conditioned point (distinct thetas, branches of at least 0.05) the site
+# vectors again and the gradient within MESH_GRAD_REL in norm (relative), in
+# fp64 over the branch lengths (the other keys pass through eigh's backward,
+# which amplifies summation order; reported); (b) a mixed mesh (the card, the
+# host) at MESH_SMALL_TAXA x MESH_SMALL_CODONS in fp64 against the card
+# alone, as the conditioned point of (a); (c)
+# `fel.run` capped on that input over the mesh, its site table against the
+# unsharded per-site stage on the run's own global fit within MESH_TABLE_ATOL,
+# and again over the mixed mesh in fp64 on its first MESH_MIXED_CODONS codons
+# within MESH_MIXED_TABLE_ATOL (the host's and the card's eigh differ in their
+# last bits, which the capped Nelder-Mead carries to ~1e-9 in the LRT and
+# p-value columns; a block on the wrong device or rows out of order would
+# be off by far more, or fail);
+# (d) the BUSTED mixture (3 omega x 3 synonymous-rate classes) at
+# MESH_BUSTED_CODONS planted codons, value and gradient as at (a)'s
+# conditioned point
+MESH_SHARDS, MESH_REPS = 4, 2
+MESH_LNL_REL, MESH_SITE_REL = 1e-12, {"float32": 1e-6, "float64": 1e-12}
+MESH_GRAD_REL = {"float32": 1e-6, "float64": 1e-10}
+MESH_SMALL_TAXA, MESH_SMALL_CODONS, MESH_TABLE_ATOL = 48, 128, 1e-9
+MESH_MIXED_CODONS, MESH_MIXED_TABLE_ATOL = 24, 1e-6
+MESH_BUSTED_CODONS = 512
 
 
 def log(msg: str) -> None:
@@ -5068,6 +5111,464 @@ def phase_engine(torch, aln, fasta: str, newick: str, tmp: str) -> dict:
     return res
 
 
+def _mesh_launch_devices(torch):
+    """K1's launches counted per device while the returned dict is live
+    (the wrapper's own count is one total); ``restore()`` ends it."""
+    from hyphy_tpu_torch.ops import level_products as lp_mod
+
+    original = lp_mod._launch
+    seen = {}
+
+    def launch(cc, cp):
+        seen[str(cc.device)] = seen.get(str(cc.device), 0) + 1
+        return original(cc, cp)
+
+    lp_mod._launch = launch
+    seen["restore"] = lambda: setattr(lp_mod, "_launch", original)
+    return seen
+
+
+def _mesh_overlap(torch, fn, path: str) -> dict:
+    """One run of ``fn`` under torch.profiler on a mesh of distinct cards:
+    per card its kernels' summed time and the window from its first kernel's
+    start to its last one's end, and how much of the windows overlap (the
+    summed windows over the span of all of them: 1 when the cards ran one
+    after another, up to the card count when they ran at once)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cards = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        c = cards.setdefault(e.device_index, {"busy_us": 0.0, "start": e.time_range.start,
+                                              "end": e.time_range.end, "kernels": 0})
+        c["busy_us"] += e.time_range.end - e.time_range.start
+        c["start"] = min(c["start"], e.time_range.start)
+        c["end"] = max(c["end"], e.time_range.end)
+        c["kernels"] += 1
+    with open(path, "w") as fh:
+        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    if not cards:
+        return {"wall_ms": wall, "cards": {}, "overlap": None}
+    span = max(c["end"] for c in cards.values()) - min(c["start"] for c in cards.values())
+    windows = sum(c["end"] - c["start"] for c in cards.values())
+    return {"wall_ms": wall,
+            "cards": {str(k): {"busy_ms": c["busy_us"] / 1e3, "kernels": c["kernels"],
+                               "window_ms": (c["end"] - c["start"]) / 1e3}
+                      for k, c in sorted(cards.items())},
+            "overlap": windows / span if span > 0 else None}
+
+
+def _mesh_compare(torch, f0, fm, name: str, dtype_name: str, grad_keys=None,
+                  hold_lnl: bool = True) -> dict:
+    """``f()`` -> (lnL tensor, site vector tensor or None, {key: grad}) of the
+    unsharded (``f0``) and the sharded (``fm``) evaluation, held to phase
+    30's bounds; the gradient over ``grad_keys`` (default: every key), the
+    others' relative differences reported per key; the lnL reported only
+    unless ``hold_lnl``."""
+    import numpy as np
+
+    v0, s0, g0 = f0()
+    vm, sm, gm = fm()
+    out_keys = {}
+    if grad_keys is not None:
+        for k in sorted(set(g0) - set(grad_keys)):
+            a, b = gm[k].double().cpu().numpy(), g0[k].double().cpu().numpy()
+            out_keys[k] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        g0 = {k: g0[k] for k in grad_keys}
+    v0, vm = float(v0), float(vm)
+    out = {"lnl": v0, "lnl_sharded": vm, "lnl_rel": abs(vm - v0) / abs(v0)}
+    if s0 is not None:
+        s0, sm = s0.double().cpu().numpy(), sm.double().cpu().numpy()
+        check(sm.shape == s0.shape, f"{name}: sharded site vector {sm.shape}, not {s0.shape}")
+        out["site_rel"] = float((np.abs(sm - s0) / np.abs(s0)).max())
+    out["grad_rel"] = 0.0
+    if g0:
+        a = np.concatenate([gm[k].double().cpu().numpy().ravel() for k in sorted(g0)])
+        b = np.concatenate([g0[k].double().cpu().numpy().ravel() for k in sorted(g0)])
+        out["grad_rel"] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    out["grad_keys"] = sorted(g0)
+    if out_keys:
+        out["grad_rel_unbounded_keys"] = out_keys
+    lnl_bound = f"{MESH_LNL_REL:.0e}" if hold_lnl else "none"
+    log(f"[mesh] {name} {dtype_name}: lnL {v0:.8f} sharded {vm:.8f} (rel "
+        f"{out['lnl_rel']:.3e}, bound {lnl_bound}); site vector rel "
+        f"{out.get('site_rel', float('nan')):.3e} (bound {MESH_SITE_REL[dtype_name]:.0e}); "
+        f"gradient rel over {out['grad_keys']} {out['grad_rel']:.3e} (bound "
+        f"{MESH_GRAD_REL[dtype_name]:.0e})"
+        + (f"; not bounded here, rel per key {out_keys}" if out_keys else ""))
+    check(math.isfinite(vm) and (out["lnl_rel"] <= MESH_LNL_REL or not hold_lnl),
+          f"{name} {dtype_name}: sharded lnL off the unsharded")
+    check(out.get("site_rel", 0.0) <= MESH_SITE_REL[dtype_name],
+          f"{name} {dtype_name}: sharded site vector off the unsharded")
+    check(out["grad_rel"] <= MESH_GRAD_REL[dtype_name],
+          f"{name} {dtype_name}: sharded gradient off the unsharded")
+    return out
+
+
+def _lf_value_grad(torch, lf, params):
+    def run():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        value = lf.loglik(p)
+        value.backward()
+        with torch.no_grad():
+            (site,) = lf.site_log_likelihoods(params)
+        return value.detach(), site, {k: p[k].grad for k in p}
+    return run
+
+
+def _mesh_gene(torch, aln, newick: str, mesh, distinct: bool) -> dict:
+    """(a): MG94xREV at bench.py's point, sharded against unsharded, with
+    times, K1 launches per value on each device and the peak per device."""
+    import numpy as np
+
+    from hyphy_tpu_torch.convert import params_from_numpy
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.data.genetic_code import GeneticCode
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.models import frequencies as freq_mod
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.models.codon import MG94xREVPartitionedOmega
+    from hyphy_tpu_torch.ops import pruning
+    from hyphy_tpu_torch.ops.level_products import level_products
+    from hyphy_tpu_torch.parallel.mesh import data_mesh
+    from hyphy_tpu_torch.tree.topology import Tree
+
+    gc = GeneticCode("Universal")
+    filt = DataFilter.from_alignment(aln, "codon", genetic_code=gc)
+    leaves = filt.leaf_partials()
+    filt.leaf_partials = lambda: leaves      # made once for the four functions below
+    tree = Tree.from_newick(newick, leaf_order=filt.names)
+    corners, codon_freqs = freq_mod.f3x4(filt, gc)
+    nb = tree.n_branches
+    model = MG94xREVPartitionedOmega(
+        gc, corners, codon_freqs,
+        nuc_lengths=np.maximum(np.abs(np.asarray(tree.input_lengths[:-1])), 1e-3),
+        branch_groups=np.zeros(nb, dtype=np.int32), n_groups=1, free_lengths=True,
+        device=DEVICE)
+    point = {k: np.full(s.shape, s.init, np.float64)
+             for k, s in model.parameter_specs(nb).items()}
+    point["alpha"] = model.nuc_lengths.cpu().numpy()
+    params = params_from_numpy(point, DEVICE)
+    conditioned = dict(params, **params_from_numpy(
+        dict({f"theta_{p}": np.float64(v) for p, v in
+              zip(("AC", "AT", "CG", "CT", "GT"), (0.4, 0.3, 0.6, 1.4, 0.5))},
+             alpha=np.maximum(point["alpha"], 0.05), omega=np.array([0.3])), DEVICE))
+    cards = sorted({str(d) for d in data_mesh(mesh)})
+    depth = len(tree.levels())
+    res = {"patterns": filt.n_patterns, "depth": depth}
+    pdata = pruning.build_pruning_data(tree, DEVICE)
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        part = [Partition(filt, tree, model)]
+        lf0 = LikelihoodFunction(part, dtype=dtype, device=DEVICE, mesh=None)
+        lfm = LikelihoodFunction(part, dtype=dtype, device=DEVICE, mesh=mesh)
+        # the automatic mesh: this gene fits on one card, so it stays there
+        # whatever the host's card count
+        saved = settings.mesh
+        settings.mesh = None
+        try:
+            auto = LikelihoodFunction(part, dtype=dtype, device=DEVICE).mesh
+        finally:
+            settings.mesh = saved
+        check(auto is None, f"the automatic mesh split a gene that fits on one card: {auto}")
+        estimate = pruning.gene_bytes(pdata, filt.n_patterns, 61, dtype.itemsize) / 1e9
+        # the fp64 route's gradient is ill-conditioned in the keys that pass
+        # through its eigh backward (the thetas, omega), which divides by
+        # eigenvalue gaps: the blocks' summation order (1e-16) shows there at
+        # 1e-9 relative on a 12-taxon CPU input at omega 0.3 and at 1e-6 to
+        # 5e-6 at bench.py's point on an H100, with lnL and site vectors
+        # bit-equal; branches down to 1e-3 add the cancellations of ROADMAP
+        # 3.5 (the alpha gradient 3.1e-9 there).  So the gradient is
+        # reported at bench.py's point and held at a point of distinct
+        # thetas and branches of at least 0.05, in fp64 over the branch
+        # lengths (no eigh on their path), in fp32 (Taylor) over every key;
+        # the site vector bounds the value there
+        row = _mesh_compare(torch, _lf_value_grad(torch, lf0, params),
+                            _lf_value_grad(torch, lfm, params), "MG94xREV", name,
+                            grad_keys=[])
+        row["conditioned"] = _mesh_compare(
+            torch, _lf_value_grad(torch, lf0, conditioned),
+            _lf_value_grad(torch, lfm, conditioned), "MG94xREV, conditioned point", name,
+            grad_keys=["alpha"] if dtype == torch.float64 else None, hold_lnl=False)
+        seen = _mesh_launch_devices(torch)
+        try:
+            before = level_products.launches
+            with torch.no_grad():
+                lfm.loglik(params)
+            torch.cuda.synchronize()
+            row["k1_per_value"] = level_products.launches - before
+        finally:
+            seen.pop("restore")()
+        row["k1_per_value_by_device"] = dict(seen)
+        check(row["k1_per_value"] == depth * len(mesh),
+              f"a sharded value launched K1 {row['k1_per_value']} times, not {depth} per shard")
+        check(sorted(seen) == cards, f"K1 launched on {sorted(seen)}, the mesh holds {cards}")
+        for tag, lf in (("unsharded", lf0), ("sharded", lfm)):
+            def value(lf=lf):
+                with torch.no_grad():
+                    return lf.loglik(params)
+            row[f"{tag}_value_ms"] = _eval_stats(wall_ms(torch, value, MESH_REPS))
+            row[f"{tag}_value_grad_ms"] = _eval_stats(
+                wall_ms(torch, _lf_value_grad(torch, lf, params), MESH_REPS))
+            for dev in cards:
+                torch.cuda.reset_peak_memory_stats(dev)
+            _lf_value_grad(torch, lf, params)()
+            torch.cuda.synchronize()
+            row[f"{tag}_peak_gb"] = {dev: torch.cuda.max_memory_allocated(dev) / 1e9
+                                     for dev in cards}
+        row["auto_mesh"] = None
+        row["gene_bytes_estimate_gb"] = estimate
+        if distinct:
+            for what, fn in (("value", lambda: lfm.loglik(params)),
+                             ("value_grad", _lf_value_grad(torch, lfm, params))):
+                ov = _mesh_overlap(torch, fn, os.path.join(
+                    "chiprun_out", f"profile_mesh_{name}_{what}.txt"))
+                row[f"overlap_{what}"] = ov
+                log(f"[mesh] MG94xREV {name} sharded {what} profiled over the cards: wall "
+                    f"{ov['wall_ms']:.3f} ms, per card {ov['cards']}, overlap {ov['overlap']}")
+        log(f"[mesh] MG94xREV {name}: ms per value unsharded {row['unsharded_value_ms']}, "
+            f"sharded {row['sharded_value_ms']}; per value+gradient unsharded "
+            f"{row['unsharded_value_grad_ms']}, sharded {row['sharded_value_grad_ms']}; "
+            f"K1 per sharded value {row['k1_per_value']} {row['k1_per_value_by_device']}; "
+            f"peak GB unsharded {row['unsharded_peak_gb']}, sharded {row['sharded_peak_gb']}; "
+            f"the automatic mesh: none (gene_bytes {estimate:.3f} GB)")
+        res[name] = row
+        del lf0, lfm
+        torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_small_input(tmp: str):
+    from hyphy_tpu_torch.utils.synth import random_tree_newick, synthetic_codon_alignment
+
+    aln = synthetic_codon_alignment(MESH_SMALL_TAXA, MESH_SMALL_CODONS, seed=SEED)
+    newick = random_tree_newick(MESH_SMALL_TAXA, seed=SEED)
+    fasta = os.path.join(tmp, "mesh.fasta")
+    _write_fasta(fasta, aln.names, aln.sequences)
+    return aln, newick, fasta
+
+
+def _mesh_mixed(torch, aln, newick: str) -> dict:
+    """(b): the mesh (the card, the host) in fp64 against the card alone:
+    the copies of the propagators to the host, the host's plain levels, and
+    the backward through both copies."""
+    import numpy as np
+
+    from hyphy_tpu_torch.convert import params_from_numpy
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.data.genetic_code import GeneticCode
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.models import frequencies as freq_mod
+    from hyphy_tpu_torch.models.codon import MG94xREVPartitionedOmega
+    from hyphy_tpu_torch.tree.topology import Tree
+
+    gc = GeneticCode("Universal")
+    filt = DataFilter.from_alignment(aln, "codon", genetic_code=gc)
+    tree = Tree.from_newick(newick, leaf_order=filt.names)
+    corners, codon_freqs = freq_mod.f3x4(filt, gc)
+    nb = tree.n_branches
+    model = MG94xREVPartitionedOmega(
+        gc, corners, codon_freqs, nuc_lengths=np.linspace(0.05, 0.3, nb),
+        branch_groups=np.zeros(nb, dtype=np.int32), n_groups=1, free_lengths=True,
+        device=DEVICE)
+    point = {f"theta_{p}": np.float64(v) for p, v in
+             zip(("AC", "AT", "CG", "CT", "GT"), (0.4, 0.3, 0.6, 1.4, 0.5))}
+    point.update(alpha=np.linspace(0.05, 0.3, nb), omega=np.array([0.3]))
+    params = params_from_numpy(point, DEVICE)
+    part = [Partition(filt, tree, model)]
+    lf0 = LikelihoodFunction(part, dtype=torch.float64, device=DEVICE, mesh=None)
+    lfm = LikelihoodFunction(part, dtype=torch.float64, device=DEVICE, mesh=(DEVICE, "cpu"))
+    t0 = time.perf_counter()
+    out = _mesh_compare(torch, _lf_value_grad(torch, lf0, params),
+                        _lf_value_grad(torch, lfm, params), "mixed (cuda:0, cpu)", "float64",
+                        grad_keys=["alpha"])
+    out["seconds"] = time.perf_counter() - t0
+    out["patterns"] = filt.n_patterns
+    return out
+
+
+def _mesh_fel(torch, fasta: str, newick: str, mesh, label: str, atol: float,
+              precision=None) -> dict:
+    """(c): FEL capped over ``mesh`` (``settings.mesh``), against the
+    unsharded per-site stage on the run's own global fit, every column
+    within ``atol``; both with the fused Nelder-Mead probes (at 128 sites
+    their time is host launch time, and the fused body gives the sequential
+    probes' results bit for bit), in ``precision``
+    (``HYPHY_TPU_PRECISION``) when given."""
+    import numpy as np
+
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.methods import fel
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    res = {"mesh": [str(d) for d in mesh]}
+    saved = settings.warmup, settings.mesh
+    env = {"HYPHY_TPU_NM_FUSED": "1", "HYPHY_TPU_PRECISION": precision}
+    saved_env = {k: os.environ.get(k) for k in env}
+    settings.warmup, settings.mesh = True, mesh
+    for k, v in env.items():
+        if v is not None:
+            os.environ[k] = v
+    try:
+        level_products.launches = 0
+        t0 = time.perf_counter()
+        run = fel.run(fasta, tree=newick, device=DEVICE)
+        torch.cuda.synchronize()
+        res["sharded_run_s"] = time.perf_counter() - t0
+        res["sharded_k1_launches"] = level_products.launches
+        settings.mesh = (DEVICE,)                 # a mesh of one device is no mesh
+        t0 = time.perf_counter()
+        table, _ = fel.solve_partition(run.data, run.mg94)
+        torch.cuda.synchronize()
+        res["unsharded_site_stage_s"] = time.perf_counter() - t0
+    finally:
+        settings.warmup, settings.mesh = saved
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    diff = np.abs(run.site_table - table).max(axis=0)
+    res["max_abs_diff_by_column"] = [float(x) for x in diff]
+    res["sites"] = int(table.shape[0])
+    log(f"[mesh] fel capped on {label} over {res['mesh']}: {res['sharded_run_s']:.2f} s, "
+        f"K1 {res['sharded_k1_launches']}; the unsharded per-site stage on its fit "
+        f"{res['unsharded_site_stage_s']:.2f} s; site table max |d| per column "
+        f"{res['max_abs_diff_by_column']} (bound {atol:.0e})")
+    check(run.site_table.shape == table.shape, "sharded FEL table of another shape")
+    check(bool(np.isfinite(run.site_table).all()), "non-finite sharded FEL table")
+    check(float(diff.max()) <= atol, "sharded FEL site table off the unsharded")
+    check(res["sharded_k1_launches"] > 0, "the sharded FEL run launched no K1")
+    return res
+
+
+def _mesh_busted(torch, sim_aln, sim_newick: str, mesh) -> dict:
+    """(d): the BUSTED mixture at MESH_BUSTED_CODONS planted codons (3 omega
+    classes x 3 synonymous-rate classes), sharded against unsharded."""
+    import numpy as np
+
+    from hyphy_tpu_torch.data.alignment import Alignment
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.data.genetic_code import GeneticCode
+    from hyphy_tpu_torch.models import frequencies as freq_mod
+    from hyphy_tpu_torch.models.bsrel import BSRELEngine
+    from hyphy_tpu_torch.models.codon import MG94Base
+    from hyphy_tpu_torch.ops import pruning
+    from hyphy_tpu_torch.tree.topology import Tree
+
+    gc = GeneticCode("Universal")
+    cut = Alignment(names=list(sim_aln.names),
+                    sequences=[sq[: 3 * MESH_BUSTED_CODONS] for sq in sim_aln.sequences])
+    filt = DataFilter.from_alignment(cut, "codon", genetic_code=gc)
+    tree = Tree.from_newick(sim_newick, leaf_order=filt.names)
+    corners, codon_freqs = freq_mod.f3x4(filt, gc)
+    mg94 = MG94Base(gc, corners, codon_freqs, device=DEVICE)
+    pdata = pruning.build_pruning_data(tree, DEVICE)
+    group = np.zeros(tree.n_branches, dtype=np.int64)
+    f64 = dict(dtype=torch.float64, device=DEVICE)
+    thetas = {f"theta_{p}": torch.tensor(v, **f64) for p, v in
+              zip(("AC", "AT", "CG", "CT", "GT"), (0.4, 0.3, 0.6, 1.4, 0.5))}
+    fixed = dict(omegas=torch.tensor([[0.1, 0.8, 4.0]], **f64),
+                 weights=torch.tensor([[0.6, 0.3, 0.1]], **f64),
+                 srv_rates=torch.tensor([0.4, 1.0, 2.0], **f64),
+                 srv_weights=torch.tensor([0.3, 0.5, 0.2], **f64))
+    t_b = torch.as_tensor(np.maximum(tree.input_lengths[:-1], 1e-3), **f64)
+    res = {"patterns": filt.n_patterns}
+    saved = os.environ.get("HYPHY_TPU_PRECISION")
+    try:
+        for name in ("float32", "float64"):
+            os.environ["HYPHY_TPU_PRECISION"] = name
+            args = (mg94, pdata, filt.leaf_partials(), filt.pattern_weights, group, 3)
+            e0 = BSRELEngine(*args, mesh=None)
+            em = BSRELEngine(*args, mesh=mesh)
+
+            def value_grad(engine):
+                def run():
+                    p = {k: v.detach().requires_grad_() for k, v in thetas.items()}
+                    t = t_b.detach().requires_grad_()
+                    value = engine.loglik(p, fixed["omegas"], fixed["weights"], t,
+                                          fixed["srv_rates"], fixed["srv_weights"])
+                    value.backward()
+                    with torch.no_grad():
+                        site = engine.site_log_likelihoods(
+                            thetas, fixed["omegas"], fixed["weights"], t_b,
+                            fixed["srv_rates"], fixed["srv_weights"])
+                    return value.detach(), site, dict({k: p[k].grad for k in p}, t_b=t.grad)
+                return run
+
+            # fp64: the spectral route's eigh backward sits on the thetas'
+            # path, as in (a)
+            row = _mesh_compare(torch, value_grad(e0), value_grad(em), "BUSTED mixture", name,
+                                grad_keys=["t_b"] if name == "float64" else None)
+            row["unsharded_value_grad_ms"] = _eval_stats(wall_ms(torch, value_grad(e0),
+                                                                 MESH_REPS))
+            row["sharded_value_grad_ms"] = _eval_stats(wall_ms(torch, value_grad(em), MESH_REPS))
+            log(f"[mesh] BUSTED {name}: ms per value+gradient (and site vector) unsharded "
+                f"{row['unsharded_value_grad_ms']}, sharded {row['sharded_value_grad_ms']}")
+            res[name] = row
+    finally:
+        if saved is None:
+            os.environ.pop("HYPHY_TPU_PRECISION", None)
+        else:
+            os.environ["HYPHY_TPU_PRECISION"] = saved
+    return res
+
+
+def phase_mesh(torch, aln, newick: str, sim_aln, sim_tree: str, tmp: str) -> dict:
+    """Phase 30, the device mesh (``parallel/mesh.py``): (a)-(d) above; K1
+    launches counted from 0 around them."""
+    from hyphy_tpu_torch.ops.level_products import level_products
+
+    from hyphy_tpu_torch.parallel.mesh import data_mesh
+
+    n_cards = torch.cuda.device_count()
+    distinct = n_cards >= 2
+    mesh = data_mesh(None if distinct else (DEVICE,) * MESH_SHARDS)
+    devices = [str(d) for d in mesh]
+    log(f"[mesh] devices {devices}, distinct_cards {distinct}")
+    res, stages = {"devices": devices, "distinct_cards": distinct}, {}
+
+    def stage(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    level_products.launches = 0
+    res["gene"] = stage("gene", _mesh_gene, torch, aln, newick, mesh, distinct)
+    small_aln, small_newick, small_fasta = _mesh_small_input(tmp)
+    res["mixed"] = stage("mixed", _mesh_mixed, torch, small_aln, small_newick)
+    res["fel"] = stage("fel", _mesh_fel, torch, small_fasta, small_newick, mesh,
+                       f"{MESH_SMALL_TAXA} x {MESH_SMALL_CODONS}", MESH_TABLE_ATOL)
+    # the per-site solves on distinct devices whatever the host's count: a
+    # tensor left on the first device fails there
+    mixed_fasta = _cut_fasta(small_aln, os.path.join(tmp, "mesh_mixed.fasta"),
+                             MESH_MIXED_CODONS)
+    res["fel_mixed"] = stage("fel_mixed", _mesh_fel, torch, mixed_fasta, small_newick,
+                             data_mesh((DEVICE, "cpu")),
+                             f"{MESH_SMALL_TAXA} x {MESH_MIXED_CODONS}, fp64",
+                             MESH_MIXED_TABLE_ATOL, "float64")
+    with open(sim_tree) as fh:
+        sim_newick = fh.read()
+    res["busted"] = stage("busted", _mesh_busted, torch, sim_aln, sim_newick, mesh)
+    res["level_products_launches"] = level_products.launches
+    res["stages_s"] = stages
+    log(f"[mesh] stages, s: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; K1 launches {res['level_products_launches']}")
+    check(res["level_products_launches"] > 0, "the mesh phase launched no K1")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -5160,7 +5661,7 @@ def main(argv) -> int:
 
 
 def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
-    """Phases 4-29 into ``record``; returns the names of those that drive a
+    """Phases 4-30 into ``record``; returns the names of those that drive a
     method through its entry point (each reads K1's launch count around
     its run)."""
     def timed(name, fn, *args):
@@ -5184,6 +5685,11 @@ def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
             del os.environ["HYPHY_TPU_NM_FUSED"]
         record[name]["fused_probes"] = True
 
+    from hyphy_tpu_torch.config import settings
+
+    # phases 4-29 on one card whatever the host's count (a mesh of one
+    # device is no mesh); phase 30 names its meshes itself
+    settings.mesh = (DEVICE,)
     aln, newick, fasta, tree_path = _write_inputs(tmp)
     timed("main_path", phase_main_path, torch, fasta, tree_path, tmp, full_fit)
     data, mgp = record["main_path"].pop("data"), record["main_path"].pop("mg94_fit")
@@ -5218,10 +5724,11 @@ def _default_phases(torch, record: dict, tmp: str, full_fit: bool):
     timed("bgm", phase_bgm, torch, sim_aln, sim_tree, tmp)
     timed("gard", phase_gard, torch, tmp)
     timed("engine", phase_engine, torch, aln, fasta, newick, tmp)
+    timed("mesh", phase_mesh, torch, aln, newick, sim_aln, sim_tree, tmp)
     return ("main_path", "partitions", "options", "slac", "simulate", "meme", "fubar",
             "bstill", "contrast_fel", "contrast_meme", "meme_resample", "prime", "busted",
             "busted_e", "busted_ph", "relax", "relax_groups", "absrel", "leisr", "fade", "fmm",
-            "bgm", "gard", "engine")
+            "bgm", "gard", "engine", "mesh")
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

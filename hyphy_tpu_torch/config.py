@@ -1,13 +1,25 @@
 """Global configuration knobs of the PyTorch port.
 
-Counterpart of ``hyphy_tpu/config.py`` without the device mesh (this port
-runs on one card).  The ``HYPHY_TPU_*`` environment names are kept, so one
-environment drives both packages.
+Counterpart of ``hyphy_tpu/config.py``.  The ``HYPHY_TPU_*`` environment
+names are kept, so one environment drives both packages.
 
 Device rule: ``settings.device`` defaults to ``"cuda"``.  Every entry point
 takes ``device=None`` and resolves it through :func:`resolve_device`, which
 raises when CUDA is absent and the caller did not ask for the CPU: nothing
 carries on silently on the CPU.
+
+Mesh rule (:meth:`Settings.default_mesh`): a likelihood function or a
+BS-REL engine on the card splits its patterns over every visible card only
+when two or more are visible and its estimated working set is larger than
+half of the first card's free memory; a gene that fits on one card stays
+there, where it runs faster (PERF.md) and gives the same numbers on any
+host.
+``HYPHY_TPU_MESH=off`` keeps everything on the one device.
+``settings.mesh`` names a mesh instead, e.g. ``("cpu",) * 3`` to run the
+sharded path on the CPU, or ``("cuda:0", "cuda:1")`` for two cards; it
+also splits the items of FEL's per-site solves; its first device must be
+the device the analysis runs on.  One process drives the mesh, an ordered
+tuple of devices (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +57,49 @@ class Settings:
     warmup: bool = _env("WARMUP", False, bool)
     # where tensors live: "cuda" unless the caller asks for "cpu"
     device: str = "cuda"
+    # the device mesh: None for the automatic one (every visible card, for
+    # a likelihood one card cannot hold), or a sequence of devices, repeats
+    # allowed
+    mesh: "tuple | None" = None
+
+    def default_mesh(self, device=None, nbytes=None):
+        """The mesh that an analysis on ``device`` (default
+        ``settings.device``) shards over: a tuple of ``torch.device`` whose
+        first entry is ``device``, or ``None`` for no sharding.
+
+        ``HYPHY_TPU_MESH=off`` (or 0, none, no) gives ``None``.  A mesh
+        named by ``settings.mesh`` is taken as it is (one of a single
+        device is no mesh).  Otherwise the mesh is automatic: every visible
+        card, ``device`` first, when ``device`` is a card, two or more are
+        visible and ``nbytes``, the working set the caller estimates, is
+        larger than half of ``device``'s free memory (the margin that
+        ``chunked_site_solve`` keeps too).  The reference engages its
+        MPI site-template mode on its own inside ``Optimize``
+        (``likefunc.cpp:3747``), and the JAX package shards whenever it
+        sees two devices (``hyphy_tpu/config.py:57-84``); here one thread
+        issues every block, so a mesh of cards is slower than one card
+        for a gene that fits on it (PERF.md), and is engaged only where
+        one card cannot hold the gene.  ``nbytes=None`` (a per-site
+        solve, which ``chunked_site_solve`` already fits to one card's
+        memory) never engages it.  Every device goes through
+        :func:`resolve_device`, so a mesh naming CUDA without a card
+        raises.  The JAX package leaves fp64 unsharded on an accelerator,
+        because its fp64 stages run on the host CPU; the port runs fp64 on
+        the card, and shards it like fp32."""
+        if os.environ.get("HYPHY_TPU_MESH", "auto").lower() in ("0", "off", "none", "no"):
+            return None
+        dev = canonical_device(resolve_device(device))
+        if self.mesh is not None:
+            mesh = tuple(canonical_device(resolve_device(d)) for d in self.mesh)
+            if len(mesh) == 1:
+                return None
+            if mesh[0] != dev:
+                raise ValueError(f"settings.mesh starts on {mesh[0]}, the analysis runs on {dev}")
+            return mesh
+        n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if n_cards < 2 or nbytes is None or nbytes <= torch.cuda.mem_get_info(dev)[0] / 2:
+            return None
+        return (dev,) + tuple(torch.device("cuda", i) for i in range(n_cards) if i != dev.index)
 
     def likelihood_dtype(self, device=None) -> torch.dtype:
         """Compute dtype for the likelihood path: fp64 on the CPU (parity),
@@ -77,4 +132,13 @@ def resolve_device(device=None) -> torch.device:
         # same reason)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its CUDA index filled in (``cuda`` is the current
+    card), so that two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev

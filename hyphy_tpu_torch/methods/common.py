@@ -306,6 +306,13 @@ class MG94Fit:
     n_parameters: int
     model: MG94xREVPartitionedOmega
 
+    def to(self, device) -> "MG94Fit":
+        """This fit with its model and parameters on ``device`` (a per-site
+        stage builds its objective on each device of its mesh)."""
+        return dataclasses.replace(
+            self, model=self.model.to(device),
+            params={k: v.to(device) for k, v in self.params.items()})
+
 
 def _codon_frequencies(filt, gc: GeneticCode, frequency_method: str, device):
     if frequency_method == "CF3x4":

@@ -21,16 +21,18 @@ dN/dS; ``resample`` replaces the chi^2 p-values by parametric-bootstrap
 ones and keeps the asymptotic ones in a "p-asmp" column.
 
 Every site of a partition is fitted at once: one batched Nelder-Mead over
-all patterns (the JAX package shards the same batch over a device mesh;
-here :func:`chunked_site_solve` splits it in time when the card's free
-memory asks).  The per-site route follows the compute dtype, as in the
-reference: fp64 takes the spectral route, fp32 (the card's default) the
-Taylor vector action.
+all patterns, split over the device mesh that ``settings.mesh`` names
+(:func:`parallel.mesh.sharded_site_solve`: each device fits its contiguous
+block of patterns with an objective built on that device) and, on each
+device, in time when its free memory asks.  The per-site route follows
+the compute dtype, as in the reference: fp64 takes the spectral route,
+fp32 (the card's default) the Taylor vector action.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -43,8 +45,9 @@ from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
 from hyphy_tpu_torch.models.parameters import ParamSpec
 from hyphy_tpu_torch.ops import expm as expm_ops
 from hyphy_tpu_torch.ops import pruning
-from hyphy_tpu_torch.optimize.batched import chunked_site_solve, grid_best_starts
+from hyphy_tpu_torch.optimize.batched import grid_best_starts
 from hyphy_tpu_torch.optimize.nelder_mead import vmapped_nelder_mead
+from hyphy_tpu_torch.parallel.mesh import per_device, sharded_site_solve, to_device
 from hyphy_tpu_torch.utils import simulate as sim_mod
 
 # FEL.bf:609-734 start grids
@@ -271,36 +274,43 @@ def draw_site_columns(data: common.LoadedData, mgp: common.MG94Fit, propagators,
     return states
 
 
-def _profile_ci(solve, site_loglik, specs, srv, init, alt_alpha, alt_beta, alt_lnl,
-                n_patterns, device, n_expand: int = 8, n_bisect: int = 25):
+def _profile_ci(solve, stage, specs, srv, init, alt_alpha, alt_beta, alt_lnl,
+                n_patterns, n_expand: int = 8, n_bisect: int = 25):
     """95% profile-likelihood CI on site dN/dS (FEL.bf:738-756).
 
     The profile reoptimizes the nuisance parameters (alpha, background
     beta, site delta/psi) at every trial ratio — the engine's
     COVARIANCE_PARAMETER machinery (likefunc.cpp:6565) — with the batched
     Nelder-Mead (at most 80 iterations).  All sites are profiled at once:
-    each bisection step is one batched fit over every pattern."""
+    each bisection step is one batched fit over every pattern, each device
+    of the mesh fitting its block with ``stage(device).site_loglik``."""
     nuis_specs = {k: v for k, v in specs.items() if k != "beta_test"}
-    f64 = dict(dtype=torch.float64, device=device)
 
     def profile(r: np.ndarray) -> np.ndarray:
         """max over the nuisance of site lnL with beta_test := r * alpha."""
-        r_t = torch.as_tensor(r, **f64)
 
-        def obj(i, p):
-            q = dict(p)
-            a = q["alpha"] if srv else torch.ones(i.shape[0], **f64)
-            q["beta_test"] = r_t[i] * a
-            return site_loglik(i, q)
+        def make_solver(dev):
+            f64 = dict(dtype=torch.float64, device=dev)
+            r_t = torch.as_tensor(r, **f64)
+            site_loglik = stage(dev).site_loglik
+            start_all = {k: to_device(v, dev) for k, v in init.items()}
 
-        def solver(idx):
-            if not nuis_specs:
-                return {"lnl": obj(idx, {})}
-            start = {k: v[idx] for k, v in init.items()}
-            _, lnl = vmapped_nelder_mead(obj, nuis_specs, start, idx, max_iterations=80)
-            return {"lnl": lnl}
+            def obj(i, p):
+                q = dict(p)
+                a = q["alpha"] if srv else torch.ones(i.shape[0], **f64)
+                q["beta_test"] = r_t[i] * a
+                return site_loglik(i, q)
 
-        return solve(solver, n_patterns)["lnl"].cpu().numpy()
+            def solver(idx):
+                if not nuis_specs:
+                    return {"lnl": obj(idx, {})}
+                start = {k: v[idx] for k, v in start_all.items()}
+                _, lnl = vmapped_nelder_mead(obj, nuis_specs, start, idx, max_iterations=80)
+                return {"lnl": lnl}
+
+            return solver
+
+        return solve(make_solver, n_patterns)["lnl"].cpu().numpy()
 
     r_mle = np.clip(alt_beta / np.maximum(alt_alpha if srv else 1.0, 1e-8), 1e-10, _OMEGA_CAP)
     target = alt_lnl - _CHI2_95_HALF
@@ -334,16 +344,21 @@ def _profile_ci(solve, site_loglik, specs, srv, init, alt_alpha, alt_beta, alt_l
     return lb, r_mle.copy(), ub
 
 
-def _bootstrap_pvalues(solve, fit, n_reps, states, lrt_obs, device):
+def _bootstrap_pvalues(solve, stage, n_reps, states, lrt_obs):
     """Parametric-bootstrap per-site p-values (FEL.bf:805-820): refit the
     alternative and the null on each of the ``n_reps`` columns simulated per
     site (``states``, from :func:`_simulate_null_states`) as one batch of
-    ``patterns * n_reps`` items, in the solver's chunks, and count the
+    ``patterns * n_reps`` items, in the solver's blocks and chunks
+    (``stage(device).fit`` on each device of the mesh), and count the
     replicates whose LRT reaches the observed one.  The states stay an int
-    table on the device; each evaluation makes its chunk's rows one-hot.
+    table on each device; each evaluation makes its chunk's rows one-hot.
     Returns (p [patterns], LRT [patterns, n_reps])."""
-    st = torch.as_tensor(states, device=device)
-    out = solve(lambda idx: fit(idx, st), states.shape[0])
+    def make_solver(dev):
+        st = torch.as_tensor(states, device=dev)
+        fit = stage(dev).fit
+        return lambda idx: fit(idx, st)
+
+    out = solve(make_solver, states.shape[0])
     alt_lnl, null_lnl = (out[k].cpu().numpy() for k in ("alt_lnl", "null_lnl"))
     lrt_sim = np.maximum(2.0 * (alt_lnl - null_lnl), 0.0).reshape(-1, n_reps)
     hits = (lrt_sim >= lrt_obs[:, None] - 1e-10).sum(axis=1)
@@ -360,10 +375,11 @@ def solve_partition(
     ci: bool = False,
 ):
     """The per-site stage of one partition: grid starts, alternative and
-    null Nelder-Mead fits of every pattern (in as many chunks as the
-    device's free memory asks), LRT, then the options' columns (CI,
-    bootstrap p-values, 2H/3H rates), and the site table expanded from
-    patterns to sites.  Returns (site_table, headers)."""
+    null Nelder-Mead fits of every pattern (split over the mesh that
+    ``settings.mesh`` names, the objective built once on each of its
+    devices, and on each device in as many chunks as its free memory
+    asks), LRT, then the options' columns (CI, bootstrap p-values, 2H/3H
+    rates), and the site table expanded from patterns to sites.  Returns (site_table, headers)."""
     filt = data.codon_filter
     tested = data.tested_branches
     has_background = bool((~tested).any())
@@ -377,78 +393,84 @@ def solve_partition(
     delta_hat = float(mgp.params["delta"]) if mh else 0.0
     psi_hat = float(mgp.params["psi"]) if mh_triple else 0.0
     dtype = settings.likelihood_dtype(device)
-    loglik = site_log_likelihood(data, mgp, dtype, spectral=dtype == torch.float64,
-                                 per_site_multihit=mh_est)
     f64 = dict(dtype=torch.float64, device=device)
     site_bytes = _site_bytes(data, dtype, model.n_states)
-
-    def solve(solver, n_items):
-        return chunked_site_solve(solver, n_items, site_bytes, device)
-
-    def evaluate(idx, a, betas, scalers, states):
-        if has_background:
-            betas = betas + [scalers["beta_nuisance"]]
-        return loglik(idx, a, torch.stack(betas, dim=1), scalers.get("delta"),
-                      scalers.get("psi"), states)
-
-    def site_loglik(idx, scalers, states=None):
-        a = scalers["alpha"] if srv else torch.ones(idx.shape[0], **f64)
-        return evaluate(idx, a, [scalers["beta_test"]], scalers, states)
-
-    def null_loglik(idx, scalers, states=None):
-        return evaluate(idx, scalers["alpha"], [scalers["alpha"]], scalers, states)
-
-    # -- alternative fits -------------------------------------------------------
     rate = ParamSpec(init=1.0, lower=0.0, upper=10000.0)
     if srv:
         specs = {"alpha": rate, "beta_test": rate}
-        grid = {"alpha": torch.tensor(_SRV_GRID[:, 0], **f64),
-                "beta_test": torch.tensor(_SRV_GRID[:, 1], **f64)}
+        grid_np = {"alpha": _SRV_GRID[:, 0], "beta_test": _SRV_GRID[:, 1]}
         if has_background:
-            grid["beta_nuisance"] = torch.tensor(_SRV_GRID[:, 1], **f64)
+            grid_np["beta_nuisance"] = _SRV_GRID[:, 1]
     else:
         specs = {"beta_test": rate}
-        grid = {"beta_test": torch.tensor(_NOSRV_GRID, **f64)}
+        grid_np = {"beta_test": _NOSRV_GRID}
         if has_background:
-            grid["beta_nuisance"] = torch.tensor(_NOSRV_GRID, **f64)
+            grid_np["beta_nuisance"] = _NOSRV_GRID
     if has_background:
         specs["beta_nuisance"] = rate
-    n_grid = next(iter(grid.values())).shape[0]
+    n_grid = next(iter(grid_np.values())).shape[0]
     for key, hat in zip(mh_keys, (delta_hat, psi_hat)):
         specs[key] = ParamSpec(init=max(hat, 1e-3), lower=0.0, upper=100.0)
-        grid[key] = torch.full((n_grid,), hat, **f64)
+        grid_np[key] = np.full(n_grid, hat)
 
-    def fit(idx, states=None):
-        def alt(i, p):
-            return site_loglik(i, p, states)
+    def solve(make_solver, n_items):
+        return sharded_site_solve(make_solver, n_items, site_bytes, device)
 
-        def null(i, p):
-            return null_loglik(i, p, states)
+    @per_device
+    def stage(dev):
+        """The per-site objectives and the fit of every item, on ``dev``."""
+        loglik = site_log_likelihood(data, mgp.to(dev), dtype,
+                                     spectral=dtype == torch.float64,
+                                     per_site_multihit=mh_est)
+        f64 = dict(dtype=torch.float64, device=dev)
+        grid = {k: torch.tensor(v, **f64) for k, v in grid_np.items()}
 
-        starts, _ = grid_best_starts(alt, grid, idx)
-        alt_params, alt_lnl = vmapped_nelder_mead(alt, specs, starts, idx)
-        alt_alpha = alt_params["alpha"] if srv else torch.ones(idx.shape[0], **f64)
-        alt_beta = alt_params["beta_test"]
-        # null: beta_test := alpha (a free common scaler even without SRV —
-        # the reference's `=` assignment clears the alpha := 1 constraint),
-        # started from the reference's blend (FEL.bf:777-785)
-        null_specs = {"alpha": rate}
-        null_start = {"alpha": (torch.clamp_max(alt_alpha, 100.0)
-                                + 3.0 * torch.clamp_max(alt_beta, 100.0)) / 4.0}
-        for key in (("beta_nuisance",) if has_background else ()) + mh_keys:
-            null_specs[key] = specs[key]
-            null_start[key] = alt_params[key]
-        null_params, null_lnl = vmapped_nelder_mead(null, null_specs, null_start, idx)
-        ones = torch.ones(idx.shape[0], **f64)
-        out = {"alt_alpha": alt_alpha, "alt_beta": alt_beta, "alt_lnl": alt_lnl,
-               "null_common": null_params["alpha"], "null_lnl": null_lnl,
-               "null_bg": null_params.get("beta_nuisance", ones),
-               "alt_bg": alt_params.get("beta_nuisance", ones)}
-        out.update({key: alt_params[key] for key in mh_keys})
-        out.update({f"null_{key}": null_params[key] for key in mh_keys})
-        return out
+        def evaluate(idx, a, betas, scalers, states):
+            if has_background:
+                betas = betas + [scalers["beta_nuisance"]]
+            return loglik(idx, a, torch.stack(betas, dim=1), scalers.get("delta"),
+                          scalers.get("psi"), states)
 
-    fitted = solve(fit, n_patterns)
+        def site_loglik(idx, scalers, states=None):
+            a = scalers["alpha"] if srv else torch.ones(idx.shape[0], **f64)
+            return evaluate(idx, a, [scalers["beta_test"]], scalers, states)
+
+        def null_loglik(idx, scalers, states=None):
+            return evaluate(idx, scalers["alpha"], [scalers["alpha"]], scalers, states)
+
+        def fit(idx, states=None):
+            def alt(i, p):
+                return site_loglik(i, p, states)
+
+            def null(i, p):
+                return null_loglik(i, p, states)
+
+            starts, _ = grid_best_starts(alt, grid, idx)
+            alt_params, alt_lnl = vmapped_nelder_mead(alt, specs, starts, idx)
+            alt_alpha = alt_params["alpha"] if srv else torch.ones(idx.shape[0], **f64)
+            alt_beta = alt_params["beta_test"]
+            # null: beta_test := alpha (a free common scaler even without SRV —
+            # the reference's `=` assignment clears the alpha := 1 constraint),
+            # started from the reference's blend (FEL.bf:777-785)
+            null_specs = {"alpha": rate}
+            null_start = {"alpha": (torch.clamp_max(alt_alpha, 100.0)
+                                    + 3.0 * torch.clamp_max(alt_beta, 100.0)) / 4.0}
+            for key in (("beta_nuisance",) if has_background else ()) + mh_keys:
+                null_specs[key] = specs[key]
+                null_start[key] = alt_params[key]
+            null_params, null_lnl = vmapped_nelder_mead(null, null_specs, null_start, idx)
+            ones = torch.ones(idx.shape[0], **f64)
+            out = {"alt_alpha": alt_alpha, "alt_beta": alt_beta, "alt_lnl": alt_lnl,
+                   "null_common": null_params["alpha"], "null_lnl": null_lnl,
+                   "null_bg": null_params.get("beta_nuisance", ones),
+                   "alt_bg": alt_params.get("beta_nuisance", ones)}
+            out.update({key: alt_params[key] for key in mh_keys})
+            out.update({f"null_{key}": null_params[key] for key in mh_keys})
+            return out
+
+        return SimpleNamespace(fit=fit, site_loglik=site_loglik)
+
+    fitted = solve(lambda dev: stage(dev).fit, n_patterns)
     common.progress("fel", "per-site fits done")
     fits = {k: v.detach().cpu().numpy() for k, v in fitted.items()}
     alt_alpha, alt_beta, alt_lnl = fits["alt_alpha"], fits["alt_beta"], fits["alt_lnl"]
@@ -470,7 +492,7 @@ def solve_partition(
         null = {"alpha": null_common, "beta_nuisance": fits["null_bg"]}
         null.update({key: fits[f"null_{key}"] for key in mh_keys})
         states = _simulate_null_states(data, mgp, null, resample, resample_seed)
-        pvals, _ = _bootstrap_pvalues(solve, fit, resample, states, lrt, device)
+        pvals, _ = _bootstrap_pvalues(solve, stage, resample, states, lrt)
 
     ci_cols = None
     if ci:
@@ -481,8 +503,8 @@ def solve_partition(
         if has_background:
             init["beta_nuisance"] = fitted["alt_bg"]
         init.update({key: fitted[key] for key in mh_keys})
-        ci_cols = _profile_ci(solve, site_loglik, specs, srv, init, alt_alpha, alt_beta,
-                              alt_lnl, n_patterns, device)
+        ci_cols = _profile_ci(solve, stage, specs, srv, init, alt_alpha, alt_beta,
+                              alt_lnl, n_patterns)
 
     # constant patterns are not fit (FEL.bf: is_constant -> zero row)
     constant = filt.constant_pattern_mask()

@@ -2,7 +2,9 @@
 
 Counterpart of ``hyphy_tpu/models/base.py``.  A model is a plain Python
 object that keeps its own precomputed tensors on one device and whose
-``build`` maps a flat parameter dict to per-branch transition matrices.
+``build`` maps a flat parameter dict to per-branch transition matrices;
+``to(device)`` gives its copy on another device (a per-site objective is
+built on each device of a mesh, ``parallel/mesh.py``).
 
 Canonical-form semantics (parity-critical): for a canonical model the
 engine multiplies each off-diagonal ``q_xy`` by ``pi_y`` and then sets the
@@ -12,10 +14,12 @@ diagonal to minus the row sum (reference ``_Matrix::MultByFreqs``,
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
 
+from hyphy_tpu_torch.config import canonical_device, resolve_device
 from hyphy_tpu_torch.models.parameters import Params, Specs
 from hyphy_tpu_torch.ops import expm as expm_ops
 
@@ -48,12 +52,41 @@ def expected_rate(q: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
     return -torch.sum(pi * diag, dim=-1)
 
 
+def _moved(value, device):
+    """``value`` with every tensor in it (also in lists, tuples, dicts and
+    models) copied to ``device``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    if isinstance(value, SubstitutionModel):
+        return value.to(device)
+    if isinstance(value, (list, tuple)):
+        return type(value)(_moved(v, device) for v in value)
+    if isinstance(value, dict):
+        return {k: _moved(v, device) for k, v in value.items()}
+    return value
+
+
 class SubstitutionModel:
     """Base class; subclasses define the state space and Q construction."""
 
     n_states: int
     reversible: bool = True
     datatype: str = "nucleotide"
+    device: torch.device
+
+    def to(self, device) -> "SubstitutionModel":
+        """This model with its own tensors on ``device``: the model itself
+        when it is there already, else a shallow copy whose tensor
+        attributes (and those in its lists, tuples and dicts) are copied
+        there."""
+        device = resolve_device(device)
+        if canonical_device(device) == canonical_device(self.device):
+            return self
+        out = copy.copy(self)
+        for name, value in vars(self).items():
+            setattr(out, name, _moved(value, device))
+        out.device = device
+        return out
 
     def parameter_specs(self, n_branches: int) -> Specs:
         raise NotImplementedError

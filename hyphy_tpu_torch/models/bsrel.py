@@ -23,8 +23,14 @@ propagators go to the grid form of :func:`pruning.site_log_likelihoods`,
 which folds C into K1's node axis (one launch per level for all classes,
 where the JAX package ``vmap``s one pruning per class).
 
-The JAX package's pattern-axis mesh and its padding (``bsrel.py:95-127``)
-are left out: one card has no mesh.
+With a device mesh (``parallel/mesh.py``) the leaf CLVs are split on the
+pattern axis as in ``LikelihoodFunction``: the mixture propagators are
+built once on the model's device and copied to each block's device, where
+its levels run through K1 (the JAX package pads the patterns to a device
+multiple, ``bsrel.py:95-127``; here the blocks are unequal and nothing is
+padded).  The flux vectors and ancestors (``branch_class_site_logliks``,
+BUSTED's joint reconstruction) stay on the model's device, over every
+pattern.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from hyphy_tpu_torch.models.parameters import stick_breaking_weights
 from hyphy_tpu_torch.ops import expm as expm_ops
 from hyphy_tpu_torch.ops import pruning
 from hyphy_tpu_torch.ops.ancestral import branch_flux_vectors
+from hyphy_tpu_torch.parallel.mesh import resolve_mesh
 
 # bytes of one piece of branch_class_site_logliks' [branches, K, patterns, S]
 # class messages
@@ -96,6 +103,10 @@ class BSRELEngine:
     background distributions); ``group_of_branch`` maps each branch to its
     group.  ``basis_fn(params) -> (q_syn, q_nonsyn)`` overrides the
     one-step MG94 bases (BUSTED --multiple-hits, ``BUSTED.bf:329-352``).
+    ``mesh``: the devices over which the pruning splits its patterns
+    (``"auto"``: ``settings.default_mesh``, which engages every card only
+    where the pruning over the synonymous-rate classes passes half of
+    the model's card's free memory; ``None``: the model's device alone).
     """
 
     def __init__(
@@ -107,6 +118,7 @@ class BSRELEngine:
         group_of_branch: np.ndarray,    # [B] int
         srv_classes: int = 1,
         basis_fn=None,
+        mesh="auto",
     ):
         self.model = mg94
         self.device = device = mg94.device
@@ -135,6 +147,19 @@ class BSRELEngine:
         self.srv_classes = srv_classes
         self.freqs = mg94.frequencies.to(self.dtype)
         self.basis_fn = basis_fn or mg94.basis_matrices
+        self.mesh = resolve_mesh(mesh, device, srv_classes * pruning.gene_bytes(
+            pdata, self.leaf_partials.shape[1], mg94.n_states, self.leaf_partials.element_size()))
+        self._shards = (None if self.mesh is None else
+                        pruning.shard_patterns(pdata, self.leaf_partials, self.mesh, self.dtype))
+
+    def _prune(self, p_matrices, floor=None):
+        """Site lnLs of the leaves under ``p_matrices`` (one-set or grid
+        form), over the mesh when there is one."""
+        if self._shards is not None:
+            return pruning.sharded_site_log_likelihoods(p_matrices, self._shards, self.freqs,
+                                                        floor)
+        return pruning.site_log_likelihoods(p_matrices, self.leaf_partials, self.freqs,
+                                            self.pdata, floor)
 
     def _family_generators(self, params, omegas):
         """[G*K, S, S] generators in the compute dtype; per-group bases
@@ -285,7 +310,7 @@ class BSRELEngine:
                                             srv_weights):
         p = self.branchsite_srv_propagators(params, omegas, weights, t_b, srv_rates,
                                             srv_weights)
-        return pruning.site_log_likelihoods(p, self.leaf_partials, self.freqs, self.pdata)
+        return self._prune(p)
 
     def class_site_log_likelihoods(self, params, omegas, weights, t_b, srv_rates):
         """``[C, patterns]`` per-synonymous-rate-class site lnLs — the
@@ -295,8 +320,7 @@ class BSRELEngine:
         floor on each class's site likelihood."""
         times = srv_rates[:, None] * t_b[None, :]                # [C, B]
         p_mix = self.mixture_propagators(params, omegas, weights, times)
-        return pruning.site_log_likelihoods(p_mix, self.leaf_partials, self.freqs,
-                                            self.pdata, floor=True)
+        return self._prune(p_mix, floor=True)
 
     def site_log_likelihoods(self, params, omegas, weights, t_b, srv_rates, srv_weights):
         """``[patterns]`` fp64 log-likelihoods of the mixture model."""

@@ -53,6 +53,8 @@ import numpy as np
 import torch
 
 from hyphy_tpu_torch.ops.level_products import _MAX_NODES, level_products
+from hyphy_tpu_torch.parallel.mesh import shards as mesh_shards
+from hyphy_tpu_torch.parallel.mesh import to_device
 from hyphy_tpu_torch.tree.topology import Tree
 
 # source id of the all-ones scratch row gathered by padded child slots
@@ -184,24 +186,41 @@ def max_grid_points(data: PruningData) -> int:
     return max(1, _MAX_NODES // max(_launch_rows(plan) for plan in data.plans))
 
 
+def _level_rows(plan: LevelPlan) -> int:
+    """Rows of ``[patterns, S]`` that one level of the pruning makes: the
+    children gathered from earlier levels, their join (or the copy of the
+    shared leaves) and its reordering, K1's product and its renormalised
+    copy, and a wide node's chunk products and their pairwise
+    combination."""
+    w, k = plan.child_branch.shape
+    rows = sum(len(r) for src, r in plan.pieces if src > 0)
+    shared = len(plan.pieces) == 1 and plan.pieces[0][0] <= 0
+    rows += w * k * (int(len(plan.pieces) > 1 or (shared and plan.perm is None))
+                     + int(plan.perm is not None))
+    chunked = 3 * w * k // _CHUNK if k > _CHUNK else 0
+    return rows + 2 * w + chunked
+
+
 def grid_point_bytes(data: PruningData, patterns: int, states: int, itemsize: int) -> float:
     """One grid point's peak working set in the grid form of
     :func:`site_log_likelihoods`, in bytes: every level's output is kept
-    until the root, and at each level the children gathered from earlier
-    levels, their join (or the copy of the shared leaves) and its
-    reordering live beside K1's product and its renormalised copy, with a
-    wide node's chunk products and their pairwise combination on top."""
+    until the root, beside the rows the level makes
+    (:func:`_level_rows`)."""
     kept, peak = 0, 0
     for plan in data.plans:
-        w, k = plan.child_branch.shape
-        rows = sum(len(r) for src, r in plan.pieces if src > 0)
-        shared = len(plan.pieces) == 1 and plan.pieces[0][0] <= 0
-        rows += w * k * (int(len(plan.pieces) > 1 or (shared and plan.perm is None))
-                         + int(plan.perm is not None))
-        chunked = 3 * w * k // _CHUNK if k > _CHUNK else 0
-        peak = max(peak, kept + rows + 2 * w + chunked)
-        kept += w
+        peak = max(peak, kept + _level_rows(plan))
+        kept += plan.child_branch.shape[0]
     return float(peak * patterns * states * itemsize)
+
+
+def gene_bytes(data: PruningData, patterns: int, states: int, itemsize: int) -> float:
+    """The working set of one value and gradient of
+    :func:`site_log_likelihoods` (one propagator set), in bytes: autograd
+    keeps every level's rows (:func:`_level_rows`) until the backward.  A
+    device mesh is engaged on its own only where this passes half a card's
+    free memory (``config.Settings.default_mesh``)."""
+    return float(sum(_level_rows(plan) for plan in data.plans)
+                 * patterns * states * itemsize)
 
 
 def site_log_likelihoods(
@@ -312,6 +331,67 @@ def site_log_likelihoods(
         root_like = torch.maximum(root_like, tiny)
     out = torch.log(root_like.to(torch.float64)) + log_scale
     return out if grid else out[0]
+
+
+class PatternShards(NamedTuple):
+    """A tree's leaf CLVs split on the pattern axis over a device mesh
+    (``parallel/mesh.py``): per block, in pattern order, its leaves
+    ``[n_leaves, block, S]`` on its device and the tree's
+    :class:`PruningData` on that device (the level plans are device
+    tensors)."""
+
+    leaves: Tuple[torch.Tensor, ...]
+    datas: Tuple[PruningData, ...]
+
+
+def data_to(data: PruningData, device) -> PruningData:
+    """``data`` with its level plans' tensors on ``device``."""
+    def move(x):
+        return None if x is None else x.to(device)
+
+    plans = tuple(
+        LevelPlan([(src, rows.to(device)) for src, rows in plan.pieces], move(plan.perm),
+                  *(move(x) for x in plan[2:]))
+        for plan in data.plans)
+    return data._replace(plans=plans)
+
+
+def shard_patterns(data: PruningData, leaf_partials, mesh, dtype) -> PatternShards:
+    """``leaf_partials`` ``[n_leaves, patterns, S]`` (array or tensor)
+    split into the contiguous pattern blocks of ``mesh``, in ``dtype``,
+    beside ``data`` on each block's device (copied once per distinct
+    device)."""
+    lp = torch.as_tensor(leaf_partials)
+    plans, leaves, datas = {}, [], []
+    for dev, lo, hi in mesh_shards(lp.shape[1], mesh):
+        if str(dev) not in plans:
+            plans[str(dev)] = data_to(data, dev)
+        leaves.append(lp[:, lo:hi].to(dev).to(dtype).contiguous())
+        datas.append(plans[str(dev)])
+    return PatternShards(tuple(leaves), tuple(datas))
+
+
+def sharded_site_log_likelihoods(
+    p_matrices: torch.Tensor,
+    shards: PatternShards,
+    root_freqs: torch.Tensor,
+    floor: "bool | None" = None,
+) -> torch.Tensor:
+    """:func:`site_log_likelihoods` with the patterns split over a mesh,
+    one-set or grid form: the propagators and root frequencies, built on
+    the first device, are copied to each block's device, the block's levels
+    run through K1 there, and the blocks' site vectors are joined on the
+    first device in pattern order (``[patterns]`` or ``[G, patterns]``).
+    Every block is issued before any result is read, so blocks on distinct
+    cards overlap."""
+    first = shards.leaves[0].device
+    outs = []
+    for leaves, data in zip(shards.leaves, shards.datas):
+        dev = leaves.device
+        sll = site_log_likelihoods(to_device(p_matrices, dev), leaves,
+                                   to_device(root_freqs, dev), data, floor)
+        outs.append(to_device(sll, first))
+    return torch.cat(outs, dim=-1)
 
 
 def total_log_likelihood(site_loglik: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,10 @@
 
 Counterpart of ``grid_best_starts`` in ``hyphy_tpu/optimize/batched.py``
 (the reference's OPTIMIZATION_START_GRID semantics, ``FEL.bf:609-734``),
-and of ``hyphy_tpu/parallel/mesh.py::sharded_site_solve`` for one card:
-:func:`chunked_site_solve`.  ``vmapped_maximize`` has no caller in the
-ported methods and is not ported.
+and :func:`chunked_site_solve`, the solve of one device, which
+``parallel/mesh.py::sharded_site_solve`` runs on each device of a mesh.
+``vmapped_maximize`` has no caller in the ported methods and is not
+ported.
 """
 
 from __future__ import annotations
@@ -67,12 +68,12 @@ def chunked_site_solve(
     """Run ``solver(idx [n]) -> {k: [n, ...]}`` over consecutive chunks of
     ``range(n_items)`` and join the outputs along axis 0.
 
-    The one-card counterpart of the JAX package's ``sharded_site_solve``:
-    the batch is split in time instead of across devices, in chunks of
-    :func:`site_chunk` items.  A batched per-site solver
-    whose items are independent — grid starts and the Nelder-Mead, which
-    freezes converged items by mask — gives every item the same result
-    whatever the chunking.  ``chunk`` forces the items per chunk (to hold a
+    The solve of one device: the batch is split in time, in chunks of
+    :func:`site_chunk` items (``parallel/mesh.py::sharded_site_solve``
+    splits FEL's across the devices of a named mesh first, and runs this
+    on each).  A batched per-site solver whose items are independent —
+    grid starts and the Nelder-Mead, which freezes converged items by mask
+    — gives every item the same result whatever the chunking.  ``chunk`` forces the items per chunk (to hold a
     split against one batch)."""
     if chunk is None:
         chunk = site_chunk(n_items, bytes_per_item, device)

@@ -31,8 +31,8 @@ print("LOADED", sorted(m for m in sys.modules if m.startswith("hyphy_tpu_torch."
 # the BUSTED family, with RELAX and aBSREL, with the protein models,
 # LEISR, FADE and FitMultiModel, with BGM and GARD, and with the rest of the
 # engine (constraints, the binary model, rate variation, linear algebra, the
-# SCFG, alignment, random deviates and the host C++ kernels), which the walk
-# above must reach
+# SCFG, alignment, random deviates and the host C++ kernels), and with the
+# device mesh, which the walk above must reach
 _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batched",
                 "hyphy_tpu_torch.methods.fel", "hyphy_tpu_torch.io.json_out",
                 "hyphy_tpu_torch.ops.ancestral", "hyphy_tpu_torch.methods.counting",
@@ -51,7 +51,8 @@ _NEW_MODULES = ["hyphy_tpu_torch.utils.simulate", "hyphy_tpu_torch.optimize.batc
                 "hyphy_tpu_torch.methods.gard", "hyphy_tpu_torch.models.constraints",
                 "hyphy_tpu_torch.models.binary", "hyphy_tpu_torch.models.rate_variation",
                 "hyphy_tpu_torch.ops.linalg", "hyphy_tpu_torch.scfg", "hyphy_tpu_torch.align",
-                "hyphy_tpu_torch.utils.random", "hyphy_tpu_torch.native"]
+                "hyphy_tpu_torch.utils.random", "hyphy_tpu_torch.native",
+                "hyphy_tpu_torch.parallel.mesh"]
 
 
 def test_imports_without_jax_or_the_jax_package():
