@@ -6,6 +6,9 @@
     python3 chip_smoke.py --precision-check  # phases 1-3, then FEL's fp32 vs fp64 site calls
     python3 chip_smoke.py --busted-check     # phases 1-3, then BUSTED uncapped in fp32 and fp64
     python3 chip_smoke.py --relax-check      # phases 1-3, then RELAX and aBSREL uncapped
+    python3 chip_smoke.py --mesh             # phases 1-3, then phase 30 (the mesh) alone
+    python3 chip_smoke.py --mesh-width       # phases 1-3, then FEL's and MEME's per-site
+                                             # stages at full width, one card vs every card
 
 Run from the root of a checkout; it builds the CUDA kernels from the
 checkout's sources.  Phases, each of which fails the run if it fails:
@@ -207,8 +210,8 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      seconds, evaluations and K1 launches; a breakpoint within 30 sites of
      the planted one with c-AIC below the baseline's; the run resumed from
      its checkpoint fits only the baseline and ends alike; the baseline and
-     the best model fitted to convergence in fp32 and in fp64, the best
-     below the baseline in both, their c-AIC differences printed;
+     the best model fitted to convergence in fp32, the best below the
+     baseline;
  29. the rest of the engine at full width, through its library entry
      points: (a) the Binary model on 1000 taxa x 8192 presence/absence
      characters simulated along phase 4's tree, fitted capped in fp32 (K1
@@ -241,12 +244,23 @@ checkout's sources.  Phases, each of which fails the run if it fails:
      value and value+gradient, K1 launches per value on each device, peak
      memory per device; (b) a mixed mesh (the card, the host) on 48 taxa x
      128 codons in fp64 against the card alone; (c) ``fel.run`` capped on
-     that input over the mesh with the fused Nelder-Mead probes, its site
+     that input over the mesh (two shards of a single card) with the fused
+     Nelder-Mead probes, its site
      table against the unsharded per-site stage on the run's own global fit
      (1e-9), and over the mixed mesh in fp64 on 24 codons (1e-6: the
      host's and the card's eigensolvers round apart); the automatic
      mesh keeps (a)'s gene on one card; (d) the BUSTED
-     mixture at 512 planted codons, value and gradient as in (a).
+     mixture at 512 planted codons, value and gradient as in (a); (e) every
+     other per-site solve, each block run from a host thread of its own:
+     FUBAR's grid pass and posterior, a FADE target, MEME's stages 1-3 and
+     EBFs, contrast-FEL, contrast-MEME's fits and a permutation, PRIME and
+     LEISR (GTR) on 48 taxa x 16 codons (FADE on 16 random residues),
+     sharded (over every card, or two shards of the one card) against
+     unsharded at one capped fit: bit-equal on a mesh of cards, a block on
+     every device, K1 on every card for the grid passes; the grid pass and
+     MEME's stages on 4 sites over (card, host) in fp64 (1e-6); on distinct
+     cards FEL's per-site stage of (c) and MEME's stages timed both ways
+     and profiled per card.
 
 ``--precision-check`` runs phases 1-3 and then, in place of phases 4-30,
 FEL's per-site stage on phase 8's input at one capped global fit, run to
@@ -270,10 +284,13 @@ route timed, K6 on 5994 families, and held to the per-branch Taylor route
 at 1e-9 relative), and
 aBSREL uncapped in fp32 on the episodic control along 32 taxa, 512 codons
 (the full model no lower than any branch null); each fit's counters are
-reported.
+reported.  ``--mesh`` runs phases 1-3 and then phase 30 alone (on a host
+of four cards); ``--mesh-width`` runs phases 1-3 and then (f): FEL's
+per-site stage at phase 4's width and MEME's stages at phase 11's, on one
+card against every card of the host, timed and held bit for bit.
 
 K1's ``launches`` on the kernels line sum the phases that drive a method
-(4, 7-30, or the precision, BUSTED or RELAX check), each counted from 0
+(4, 7-30, or the precision, BUSTED, RELAX or mesh check), each counted from 0
 around its run.  It
 imports nothing of ``jax`` or ``hyphy_tpu``.  Its last three lines are
 the card's name and power limit, one JSON object describing every kernel,
@@ -284,12 +301,14 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # lnL of the JAX package on the CPU in fp64 at bench.py's parameter point on
@@ -561,13 +580,39 @@ PRECISION_RATE_ATOL, PRECISION_RATE_RTOL, PRECISION_OUTLIER_SHARE = 0.01, 0.05, 
 # be off by far more, or fail);
 # (d) the BUSTED mixture (3 omega x 3 synonymous-rate classes) at
 # MESH_BUSTED_CODONS planted codons, value and gradient as at (a)'s
-# conditioned point
+# conditioned point; (e) every other per-site solve that the JAX package
+# shards: FUBAR's grid pass and its posterior, a FADE target's grid pass,
+# MEME's stages 1-3 and its EBFs, contrast-FEL, contrast-MEME's fits and one
+# permutation of as many sites as the mesh has blocks (one item a block),
+# PRIME, LEISR (GTR; the protein models take the same solve, held on the
+# CPU); on the first MESH_SITE_CODONS codons of (b)'s input (the contrast
+# methods on its tree with two clades of about MESH_SITE_CLADES leaves
+# labelled; FADE on as many random residues), at
+# one capped global fit, grids of MESH_SITE_GRID points a side, the fused
+# probes and the Nelder-Mead capped at MESH_SITE_NM iterations (the blocks
+# give the one batch's results after any number): each sharded against
+# unsharded, every output equal bit for bit (infinities in place) on a mesh
+# of cards, every device of the mesh given a block, K1 launched on every
+# card by the grid passes; over the (card, host) mesh in fp64 the grid pass
+# and MEME's stages on MESH_MIXED_SITES sites within MESH_MIXED_SITE_REL
+# (relative above 1, absolute below; the eigensolvers round apart; an EBF
+# is not held there: near a posterior of 1 it is the quotient of a
+# cancellation, and one ulp of a forced lnL moves it by orders).  On
+# one card (c) and (e) run over MESH_SITE_SHARDS shards of it, not
+# MESH_SHARDS: with one host thread per block, four blocks of a
+# Nelder-Mead stage on one card took 12-14x the unsharded time (PERF.md),
+# and the default script has no room for that.  On distinct cards
+# FEL's per-site stage of (c) and MEME's three stages are also profiled
+# per card both ways
 MESH_SHARDS, MESH_REPS = 4, 2
 MESH_LNL_REL, MESH_SITE_REL = 1e-12, {"float32": 1e-6, "float64": 1e-12}
 MESH_GRAD_REL = {"float32": 1e-6, "float64": 1e-10}
 MESH_SMALL_TAXA, MESH_SMALL_CODONS, MESH_TABLE_ATOL = 48, 128, 1e-9
 MESH_MIXED_CODONS, MESH_MIXED_TABLE_ATOL = 24, 1e-6
 MESH_BUSTED_CODONS = 512
+MESH_SITE_CODONS, MESH_SITE_NM, MESH_SITE_CLADES = 16, 1, (12, 10)
+MESH_SITE_GRID, MESH_SITE_SHARDS = 10, 2
+MESH_MIXED_SITES, MESH_MIXED_SITE_REL = 4, 1e-6
 
 
 def log(msg: str) -> None:
@@ -828,6 +873,36 @@ class _StageClock:
     def restore(self):
         for module, name, original in self._saved:
             setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def _recorded_solves(solves: list):
+    """Every block of a per-site solve (``batched.chunked_site_solve``, which
+    ``parallel/mesh.py::sharded_site_solve`` runs for each block of a mesh,
+    from a thread of its own) appended to ``solves`` while the context
+    lasts: its items, bytes per item and device, and, as its solver is
+    called, the chunk it takes (its largest call) and its calls."""
+    from hyphy_tpu_torch.optimize import batched
+
+    original, lock = batched.chunked_site_solve, threading.Lock()
+
+    def recorded(solver, n_items, bytes_per_item, device, *args, **kwargs):
+        block = {"items": n_items, "bytes_per_item": bytes_per_item, "device": str(device),
+                 "chunk": 0, "calls": 0}
+        with lock:
+            solves.append(block)
+
+        def counted(idx):
+            block["chunk"] = max(block["chunk"], int(idx.shape[0]))
+            block["calls"] += 1
+            return solver(idx)
+        return original(counted, n_items, bytes_per_item, device, *args, **kwargs)
+
+    batched.chunked_site_solve = recorded
+    try:
+        yield solves
+    finally:
+        batched.chunked_site_solve = original
 
 
 def _check_site_table(result: dict, constant) -> dict:
@@ -1860,16 +1935,7 @@ def phase_meme(torch, aln, tree_path: str, tmp: str) -> dict:
     _write_fasta(fasta, aln.names, [s[: 3 * MEME_CODONS] for s in aln.sequences])
     out_json = os.path.join(tmp, "meme.MEME.json")
     argv = ["warmup", "meme", "--alignment", fasta, "--tree", tree_path, "--output", out_json]
-    solves = []
-    original_solve = meme.chunked_site_solve
-
-    def recorded_solve(solver, n_items, bytes_per_item, device, chunk=None):
-        solves.append({"items": n_items, "bytes_per_item": bytes_per_item,
-                       "chunk": chunk or batched.site_chunk(n_items, bytes_per_item, device)})
-        return original_solve(solver, n_items, bytes_per_item, device, chunk=chunk)
-
-    meme.chunked_site_solve = recorded_solve
-    try:
+    with _recorded_solves([]) as solves:
         clock, res = _run_cli(torch, argv, [
             (common, "load_codon_data_multi", "load"),
             (common, "fit_gtr_multi", "gtr"),
@@ -1881,8 +1947,6 @@ def phase_meme(torch, aln, tree_path: str, tmp: str) -> dict:
             (meme, "branch_ebfs", "ebf"),
             (meme, "vmapped_nelder_mead", "nelder_mead"),
         ])
-    finally:
-        meme.chunked_site_solve = original_solve
     res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
     res["stages_s"] = dict(clock.seconds)
     res["calls"] = dict(clock.calls)
@@ -2006,29 +2070,17 @@ def phase_fubar(torch, fasta: str, tree_path: str, tmp: str) -> dict:
 
     from hyphy_tpu_torch.methods import common, fubar
     from hyphy_tpu_torch.ops import pruning
-    from hyphy_tpu_torch.optimize import batched
 
     out_json = os.path.join(tmp, "sim.FUBAR.json")
     argv = ["warmup", "fubar", "--alignment", fasta, "--tree", tree_path, "--output", out_json,
             "--grid", str(GRID_POINTS)]
-    chunks = []
-    original_solve = fubar.chunked_site_solve
-
-    def recorded_solve(solver, n_items, bytes_per_item, device, chunk=None):
-        chunks.append({"points": n_items, "bytes_per_point": bytes_per_item,
-                       "chunk": chunk or batched.site_chunk(n_items, bytes_per_item, device)})
-        return original_solve(solver, n_items, bytes_per_item, device, chunk=chunk)
-
-    fubar.chunked_site_solve = recorded_solve
-    try:
+    with _recorded_solves([]) as chunks:
         clock, res = _run_cli(torch, argv, [
             (common, "load_codon_data", "load"),
             (common, "fit_gtr", "gtr"),
             (fubar, "grid_pass", "grid_pass"),
             (fubar, "posterior_over_grid", "posterior"),
         ])
-    finally:
-        fubar.chunked_site_solve = original_solve
     res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
     res["stages_s"] = dict(clock.seconds)
     res["grid_pass_s"] = clock.each["grid_pass"]
@@ -2083,7 +2135,7 @@ def phase_fubar(torch, fasta: str, tree_path: str, tmp: str) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
         + f"; grid passes {[round(t, 3) for t in res['grid_pass_s']]} s; chunks {chunks}")
     res["peak_per_point_gb"] = res["peak_gb"] / max(c["chunk"] for c in chunks)
-    log(f"[fubar] bytes per grid point: modelled {chunks[0]['bytes_per_point'] / 1e9:.3f} GB "
+    log(f"[fubar] bytes per grid point: modelled {chunks[0]['bytes_per_item'] / 1e9:.3f} GB "
         f"(pruning.grid_point_bytes and the propagators), the run's peak over its largest "
         f"chunk {res['peak_per_point_gb']:.3f} GB")
     log(f"[fubar] K1 launches {res['level_products_launches']}; peak {res['peak_gb']:.2f} GB; "
@@ -2110,8 +2162,9 @@ def phase_bstill(torch, aln, tree_path: str, tmp: str) -> dict:
     ``warmup b-still --grid GRID_POINTS``: seconds, K1 launches; the JSON
     and finite EBFs.  Then K1's node limit: pass 2 again on its first
     FORCED_PATTERNS patterns with the chunk forced to the whole grid, which
-    :func:`fubar.grid_chunk` must cut so that every level's launch stays
-    within 65535 node rows, each point equal to the run's."""
+    the grid pass must cut (:func:`pruning.max_grid_points`) so that every
+    level's launch stays within 65535 node rows, each point equal to the
+    run's."""
     import dataclasses
 
     import numpy as np
@@ -2152,13 +2205,14 @@ def phase_bstill(torch, aln, tree_path: str, tmp: str) -> dict:
     cut = dataclasses.replace(gp, leaves=gp.leaves[:, :FORCED_PATTERNS].contiguous())
     n_points = grid_t.shape[0]
     rows = max(pruning._launch_rows(plan) for plan in gp.schedule.plans)
-    chunk = fubar.grid_chunk(cut, n_points, DEVICE, n_points)
-    n_calls = -(-n_points // chunk)
     before = level_products.launches
-    t0 = time.perf_counter()
-    forced = fubar.grid_pass(cut, grid_t, times, chunk=n_points)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    with _recorded_solves([]) as blocks:
+        t0 = time.perf_counter()
+        forced = fubar.grid_pass(cut, grid_t, times, chunk=n_points)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    check(len(blocks) == 1, f"phase 13's grid pass ran in {len(blocks)} blocks on one card")
+    chunk, n_calls = blocks[0]["chunk"], blocks[0]["calls"]
     run = sll[:, :FORCED_PATTERNS]
     finite = torch.isfinite(run)      # -inf: patterns a grid point cannot produce
     res["forced_chunk"] = {
@@ -2192,20 +2246,33 @@ def _clade_members(tree, node):
     return out
 
 
-def _contrast_clades(tree):
-    """Disjoint clades near CONTRAST_CLADES leaves: for each in turn, the
+def _contrast_clades(tree, sizes=CONTRAST_CLADES):
+    """Disjoint clades near ``sizes`` leaves: for each in turn, the
     non-root node whose leaf count is nearest (lowest id on ties), outside
     and not above the clades taken.  Returns their node lists."""
     leaves = {nd: sum(1 for m in _clade_members(tree, nd) if tree.is_leaf(m))
               for nd in range(tree.n_nodes) if nd != tree.root}
     taken, clades = set(), []
-    for size in CONTRAST_CLADES:
+    for size in sizes:
         free = [nd for nd in leaves if not set(_clade_members(tree, nd)) & taken
                 and not any(nd in _clade_members(tree, c[0]) for c in clades)]
         best = min(free, key=lambda nd: (abs(leaves[nd] - size), nd))
         clades.append(_clade_members(tree, best))
         taken |= set(clades[-1])
     return clades
+
+
+def _labelled_newick(tree, lengths, labels) -> str:
+    """``tree`` as Newick with ``lengths`` and a ``{label}`` on each node
+    that ``labels`` maps."""
+    def fmt(nd):
+        base = tree.names[nd] if tree.is_leaf(nd) else (
+            "(" + ",".join(fmt(c) for c in tree.children[nd]) + ")" + tree.names[nd])
+        if nd in labels:
+            base += "{" + labels[nd] + "}"
+        return base + (f":{lengths[nd]:.6f}" if nd != tree.root else "")
+
+    return fmt(tree.root)
 
 
 def _contrast_alignment(tmp: str, kappa: float = 2.5, omega: float = 0.3):
@@ -2234,14 +2301,6 @@ def _contrast_alignment(tmp: str, kappa: float = 2.5, omega: float = 0.3):
     lengths = np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6)
     clades = _contrast_clades(tree)
     labels = {nd: lbl for lbl, clade in zip(CONTRAST_LABELS, clades) for nd in clade}
-
-    def fmt(nd):
-        base = tree.names[nd] if tree.is_leaf(nd) else (
-            "(" + ",".join(fmt(c) for c in tree.children[nd]) + ")" + tree.names[nd])
-        if nd in labels:
-            base += "{" + labels[nd] + "}"
-        return base + (f":{lengths[nd]:.6f}" if nd != tree.root else "")
-
     pi = np.full(gc.n_states, 1.0 / gc.n_states)
     slow = synth._mg94_generator(gc, kappa, omega)
     # PLANTED_OMEGA at the same synonymous rate: the non-synonymous entries
@@ -2264,7 +2323,7 @@ def _contrast_alignment(tmp: str, kappa: float = 2.5, omega: float = 0.3):
     _write_fasta(fasta, names, seqs)
     tree_path = os.path.join(tmp, "contrast.nwk")
     with open(tree_path, "w") as fh:
-        fh.write(fmt(tree.root))
+        fh.write(_labelled_newick(tree, lengths, labels))
     log(f"[contrast] alignment of {N_TAXA} taxa x {N_CODONS} codons, clades of "
         f"{[sum(tree.is_leaf(m) for m in c) for c in clades]} leaves labelled "
         f"{CONTRAST_LABELS}, omega {PLANTED_OMEGA} on {CONTRAST_LABELS[0]} at "
@@ -2380,7 +2439,6 @@ def phase_contrast_meme(torch, aln, tree_path: str, tmp: str) -> dict:
     import numpy as np
 
     from hyphy_tpu_torch.methods import common, contrast_meme
-    from hyphy_tpu_torch.optimize import batched
 
     fasta = _cut_fasta(aln, os.path.join(tmp, "cmeme.fasta"), CMEME_CODONS)
     out_json = os.path.join(tmp, "contrast.CMEME.json")
@@ -2388,16 +2446,7 @@ def phase_contrast_meme(torch, aln, tree_path: str, tmp: str) -> dict:
             "--output", out_json, "--permutations", str(CMEME_PERMUTATIONS)]
     for lbl in CONTRAST_LABELS:
         argv += ["--branch-set", lbl]
-    solves = []
-    original_solve = contrast_meme.chunked_site_solve
-
-    def recorded_solve(solver, n_items, bytes_per_item, device, chunk=None):
-        solves.append({"items": n_items, "bytes_per_item": bytes_per_item,
-                       "chunk": chunk or batched.site_chunk(n_items, bytes_per_item, device)})
-        return original_solve(solver, n_items, bytes_per_item, device, chunk=chunk)
-
-    contrast_meme.chunked_site_solve = recorded_solve
-    try:
+    with _recorded_solves([]) as solves:
         clock, res = _run_cli(torch, argv, [
             (contrast_meme, "load_multigroup", "load"),
             (common, "fit_gtr", "gtr"),
@@ -2408,8 +2457,6 @@ def phase_contrast_meme(torch, aln, tree_path: str, tmp: str) -> dict:
             (contrast_meme, "permutation_stage", "permutations"),
             (contrast_meme, "substitution_counts", "substitution_counts"),
         ])
-    finally:
-        contrast_meme.chunked_site_solve = original_solve
     res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
     res["stages_s"] = dict(clock.seconds)
     res["calls"] = dict(clock.calls)
@@ -4114,41 +4161,29 @@ def phase_fade(torch, prot_aln, planted, con_tree: str, tmp: str) -> dict:
     import scipy.linalg as sla
 
     from hyphy_tpu_torch.data.genetic_code import AMINO_ACIDS
-    from hyphy_tpu_torch.methods import fade, fubar
+    from hyphy_tpu_torch.methods import fade
     from hyphy_tpu_torch.models.protein import EmpiricalProtein
     from hyphy_tpu_torch.ops import expm as expm_ops
     from hyphy_tpu_torch.ops import pruning
-    from hyphy_tpu_torch.optimize import batched
 
     fasta = os.path.join(tmp, "fade.fasta")
     _write_fasta(fasta, prot_aln.names, [s[:FADE_SITES] for s in prot_aln.sequences])
     out_json = os.path.join(tmp, "protein.FADE.json")
     argv = ["warmup", "fade", "--alignment", fasta, "--tree", con_tree, "--output", out_json,
             "--model", "WAG", "--branches", CONTRAST_LABELS[0]]
-    chunks = []
-    original_solve = fubar.chunked_site_solve      # FADE's grid passes are FUBAR's
-
-    def recorded_solve(solver, n_items, bytes_per_item, device, chunk=None):
-        chunks.append({"points": n_items, "bytes_per_point": bytes_per_item,
-                       "chunk": chunk or batched.site_chunk(n_items, bytes_per_item, device)})
-        return original_solve(solver, n_items, bytes_per_item, device, chunk=chunk)
-
-    fubar.chunked_site_solve = recorded_solve
-    try:
+    with _recorded_solves([]) as chunks:          # FADE's grid passes are FUBAR's
         clock, res = _run_cli(torch, argv, [
             (fade, "fit_baseline", "baseline"),
             (fade, "grid_pruning", "grid_pruning"),
             (fade, "grid_pass", "grid_pass"),
             (fade, "posterior_over_grid", "posterior"),
         ])
-    finally:
-        fubar.chunked_site_solve = original_solve
     res["command"] = " ".join(["python -m hyphy_tpu_torch"] + [a.replace(tmp, "<tmp>") for a in argv])
     res["stages_s"] = dict(clock.seconds)
     res["grid_pass_s"] = clock.each["grid_pass"]
     res["posterior_s"] = clock.each["posterior"]
     res["chunks"] = chunks[0]
-    res["chunks_per_pass"] = -(-chunks[0]["points"] // chunks[0]["chunk"])
+    res["chunks_per_pass"] = -(-chunks[0]["items"] // chunks[0]["chunk"])
     with open(out_json) as fh:
         result = json.load(fh)
     check(sorted(result["MLE"]["content"]) == sorted(AMINO_ACIDS),
@@ -4484,8 +4519,9 @@ def phase_gard(torch, tmp: str) -> dict:
     GARD_BREAKPOINT_SLACK sites of the planted one, its c-AIC below the
     baseline's; a second run resumed from the first one's checkpoint fits
     only the baseline and ends alike; then the baseline and the best model
-    fitted to convergence in fp32 and in fp64, their c-AIC differences
-    against the search's 0.01 threshold."""
+    fitted to convergence in fp32, their c-AIC difference against the
+    search's 0.01 threshold, and the baseline again in fp64 (fp32's c-AIC
+    rounding against that threshold)."""
     from hyphy_tpu_torch.config import settings
     from hyphy_tpu_torch.data.alignment import read_alignment
     from hyphy_tpu_torch.data.filter import DataFilter
@@ -4553,7 +4589,10 @@ def phase_gard(torch, tmp: str) -> dict:
         resumed_fit_calls = fit_calls[0]
         launches = level_products.launches
         settings.warmup = False
-        # the baseline and the best model fitted to convergence, fp32 and fp64
+        # the baseline and the best model fitted to convergence in fp32, the
+        # card's precision; then the baseline alone in fp64, whose c-AIC
+        # against fp32's is the rounding that the search's 0.01 threshold
+        # sees (the fp64 best model went for phase 30's room)
         var_sites = gard._variable_sites(filt)[::stride]
         converged = {}
         for dtype in ("float32", "float64"):
@@ -4561,9 +4600,12 @@ def phase_gard(torch, tmp: str) -> dict:
             del fits[:]
             refit = gard._Evaluator(filt, var_sites, 1e-4, device=DEVICE)
             t0 = time.perf_counter()
-            caic = {"baseline": refit.evaluate(()), "best": refit.evaluate(run.breakpoints)}
-            converged[dtype] = {**caic, "delta": caic["baseline"] - caic["best"],
-                                "s": time.perf_counter() - t0, "fits": [dict(f) for f in fits]}
+            caic = {"baseline": refit.evaluate(())}
+            if dtype == "float32":
+                caic["best"] = refit.evaluate(run.breakpoints)
+                caic["delta"] = caic["baseline"] - caic["best"]
+            converged[dtype] = {**caic, "s": time.perf_counter() - t0,
+                                "fits": [dict(f) for f in fits]}
     finally:
         settings.warmup = False
         os.environ.pop("HYPHY_TPU_PRECISION", None)
@@ -4601,13 +4643,15 @@ def phase_gard(torch, tmp: str) -> dict:
     log(f"[gard] resumed from the checkpoint: {resumed_s:.2f} s, {resumed_fit_calls} fit(s), "
         f"breakpoints {resumed.breakpoints}")
     for dtype, row in converged.items():
-        log(f"[gard] converged {dtype}: c-AIC baseline {row['baseline']:.4f} best "
-            f"{row['best']:.4f}, difference {row['delta']:.4f}; fits (s, evaluations, K1 "
-            f"launches) {[(round(f['s'], 2), f['evaluations'], f['k1_launches']) for f in row['fits']]}")
-    log(f"[gard] fp32 - fp64 c-AIC: baseline "
-        f"{converged['float32']['baseline'] - converged['float64']['baseline']:.4e}, best "
-        f"{converged['float32']['best'] - converged['float64']['best']:.4e} (the search's "
-        f"threshold 0.01)")
+        best = (f" best {row['best']:.4f}, difference {row['delta']:.4f}" if "best" in row
+                else "")
+        log(f"[gard] converged {dtype}: c-AIC baseline {row['baseline']:.4f}{best}; fits (s, "
+            f"evaluations, K1 launches) "
+            f"{[(round(f['s'], 2), f['evaluations'], f['k1_launches']) for f in row['fits']]}")
+    res["baseline_fp32_minus_fp64"] = (converged["float32"]["baseline"]
+                                       - converged["float64"]["baseline"])
+    log(f"[gard] fp32 - fp64 c-AIC of the converged baseline: "
+        f"{res['baseline_fp32_minus_fp64']:.4e} (the search's threshold 0.01)")
     check(bool(near), f"GARD: no breakpoint within {GARD_BREAKPOINT_SLACK} of {GARD_HALF}")
     check(run.best_caic < run.baseline_caic, "GARD: the best model is no better than the baseline")
     check(resumed_fit_calls == 1 and resumed.json["totalModelCount"] == 0,
@@ -4616,9 +4660,10 @@ def phase_gard(torch, tmp: str) -> dict:
           == sorted(run.site_support) and all(abs(resumed.site_support[k] - v) <= 1e-12
                                               for k, v in run.site_support.items()),
           "GARD: the resumed run ends elsewhere")
-    check(all(math.isfinite(row[k]) for row in converged.values() for k in ("baseline", "best")),
+    check(all(math.isfinite(v) for row in converged.values()
+              for k, v in row.items() if k in ("baseline", "best")),
           "GARD: a converged fit is not finite")
-    check(all(row["best"] < row["baseline"] for row in converged.values()),
+    check(converged["float32"]["best"] < converged["float32"]["baseline"],
           "GARD: converged, the best model is no better than the baseline")
     check(launches > 0, "GARD launched no level_products kernel")
     return res
@@ -5116,11 +5161,13 @@ def _mesh_launch_devices(torch):
     (the wrapper's own count is one total); ``restore()`` ends it."""
     from hyphy_tpu_torch.ops import level_products as lp_mod
 
-    original = lp_mod._launch
+    original, lock = lp_mod._launch, threading.Lock()
     seen = {}
 
     def launch(cc, cp):
-        seen[str(cc.device)] = seen.get(str(cc.device), 0) + 1
+        # a sharded per-site solve launches from one thread per block
+        with lock:
+            seen[str(cc.device)] = seen.get(str(cc.device), 0) + 1
         return original(cc, cp)
 
     lp_mod._launch = launch
@@ -5128,16 +5175,18 @@ def _mesh_launch_devices(torch):
     return seen
 
 
-def _mesh_overlap(torch, fn, path: str) -> dict:
-    """One run of ``fn`` under torch.profiler on a mesh of distinct cards:
-    per card its kernels' summed time and the window from its first kernel's
-    start to its last one's end, and how much of the windows overlap (the
-    summed windows over the span of all of them: 1 when the cards ran one
-    after another, up to the card count when they ran at once)."""
+def _mesh_overlap(torch, fn, path: str, warm: bool = True) -> dict:
+    """One run of ``fn`` under torch.profiler on a mesh of distinct cards
+    (after a first run unless ``warm`` is false): per card its kernels'
+    summed time and the window from its first kernel's start to its last
+    one's end, and how much of the windows overlap (the summed windows over
+    the span of all of them: 1 when the cards ran one after another, up to
+    the card count when they ran at once)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -5396,13 +5445,15 @@ def _mesh_mixed(torch, aln, newick: str) -> dict:
 
 
 def _mesh_fel(torch, fasta: str, newick: str, mesh, label: str, atol: float,
-              precision=None) -> dict:
+              precision=None, timed: bool = False) -> dict:
     """(c): FEL capped over ``mesh`` (``settings.mesh``), against the
     unsharded per-site stage on the run's own global fit, every column
     within ``atol``; both with the fused Nelder-Mead probes (at 128 sites
     their time is host launch time, and the fused body gives the sequential
     probes' results bit for bit), in ``precision``
-    (``HYPHY_TPU_PRECISION``) when given."""
+    (``HYPHY_TPU_PRECISION``) when given; ``timed``: the per-site stage
+    again over the mesh, timed, and once each way under the profiler (the
+    per-card kernel windows of :func:`_mesh_overlap`)."""
     import numpy as np
 
     from hyphy_tpu_torch.config import settings
@@ -5429,6 +5480,19 @@ def _mesh_fel(torch, fasta: str, newick: str, mesh, label: str, atol: float,
         table, _ = fel.solve_partition(run.data, run.mg94)
         torch.cuda.synchronize()
         res["unsharded_site_stage_s"] = time.perf_counter() - t0
+        if timed:
+            settings.mesh = mesh
+            t0 = time.perf_counter()
+            again, _ = fel.solve_partition(run.data, run.mg94)
+            torch.cuda.synchronize()
+            res["sharded_site_stage_s"] = time.perf_counter() - t0
+            check(np.array_equal(again, run.site_table, equal_nan=True),
+                  "FEL's sharded per-site stage changed between two runs")
+            for tag, m in (("unsharded", (DEVICE,)), ("sharded", mesh)):
+                settings.mesh = m
+                res[f"overlap_{tag}"] = _mesh_overlap(
+                    torch, lambda: fel.solve_partition(run.data, run.mg94),
+                    os.path.join("chiprun_out", f"profile_mesh_fel_{tag}.txt"), warm=False)
     finally:
         settings.warmup, settings.mesh = saved
         for k, v in saved_env.items():
@@ -5443,6 +5507,10 @@ def _mesh_fel(torch, fasta: str, newick: str, mesh, label: str, atol: float,
         f"K1 {res['sharded_k1_launches']}; the unsharded per-site stage on its fit "
         f"{res['unsharded_site_stage_s']:.2f} s; site table max |d| per column "
         f"{res['max_abs_diff_by_column']} (bound {atol:.0e})")
+    if timed:
+        log(f"[mesh] fel per-site stage on {label}: sharded {res['sharded_site_stage_s']:.3f} s, "
+            f"unsharded {res['unsharded_site_stage_s']:.3f} s; profiled: unsharded "
+            f"{res['overlap_unsharded']}, sharded {res['overlap_sharded']}")
     check(run.site_table.shape == table.shape, "sharded FEL table of another shape")
     check(bool(np.isfinite(run.site_table).all()), "non-finite sharded FEL table")
     check(float(diff.max()) <= atol, "sharded FEL site table off the unsharded")
@@ -5522,8 +5590,336 @@ def _mesh_busted(torch, sim_aln, sim_newick: str, mesh) -> dict:
     return res
 
 
+def _mesh_site_hold(torch, name: str, run, mesh, rel_bound: float, grid: bool) -> dict:
+    """``run()`` -> {key: tensor} unsharded, then over ``mesh`` with every
+    block's device and K1's launches per device recorded: every output of
+    the same shape with its infinities in place, and equal bit for bit
+    (``rel_bound`` 0) or within ``rel_bound`` (relative above 1, absolute
+    below); a block on every
+    device of the mesh, and for a grid pass (``grid``) K1 launched on
+    every card of it.  Returns the row and both outputs."""
+    import numpy as np
+
+    from hyphy_tpu_torch.config import settings
+
+    settings.mesh = (DEVICE,)
+    t0 = time.perf_counter()
+    one = run()
+    torch.cuda.synchronize()
+    row = {"unsharded_s": time.perf_counter() - t0}
+    settings.mesh = mesh
+    seen = _mesh_launch_devices(torch)
+    try:
+        with _recorded_solves([]) as blocks:
+            t0 = time.perf_counter()
+            sharded = run()
+            torch.cuda.synchronize()
+            row["sharded_s"] = time.perf_counter() - t0
+    finally:
+        seen.pop("restore")()
+        settings.mesh = (DEVICE,)
+    row["blocks"] = [(b["device"], b["items"], b["chunk"]) for b in blocks]
+    row["k1_by_device"] = dict(seen)
+    row["outputs"], worst, equal = {}, 0.0, True
+    for key in one:
+        a, b = sharded[key].double().cpu().numpy(), one[key].double().cpu().numpy()
+        check(a.shape == b.shape, f"{name} {key}: sharded shape {a.shape}, not {b.shape}")
+        check(np.array_equal(np.isinf(a), np.isinf(b)) and np.array_equal(np.isnan(a),
+                                                                         np.isnan(b)),
+              f"{name} {key}: sharded non-finite entries elsewhere")
+        fin = np.isfinite(b)
+        # relative above 1, absolute below: EBFs and posteriors near 0 come
+        # out of cancellations
+        rel = np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]), 1.0)
+        row["outputs"][key] = float(rel.max()) if rel.size else 0.0
+        worst = max(worst, row["outputs"][key])
+        equal = equal and bool(np.array_equal(a, b, equal_nan=True))
+    row["max_rel"], row["equal"] = worst, equal
+    devices = sorted({str(d) for d in mesh})
+    log(f"[mesh] (e) {name} over {[str(d) for d in mesh]}: unsharded {row['unsharded_s']:.3f} s, "
+        f"sharded {row['sharded_s']:.3f} s; blocks (device, items, chunk) {row['blocks']}; K1 "
+        f"per device {row['k1_by_device']}; equal {equal}, max rel {worst:.3e} (bound "
+        f"{rel_bound:.0e}) {row['outputs']}")
+    check(equal if rel_bound == 0 else worst <= rel_bound,
+          f"{name}: the sharded solve is off the unsharded one")
+    check(sorted({b["device"] for b in blocks}) == devices,
+          f"{name}: blocks on {sorted({b['device'] for b in blocks})}, the mesh holds {devices}")
+    if grid:
+        cards = [d for d in devices if d.startswith("cuda")]
+        check(all(row["k1_by_device"].get(d, 0) > 0 for d in cards),
+              f"{name}: K1 launched on {row['k1_by_device']}, the mesh's cards are {cards}")
+    return row, one, sharded
+
+
+def _mesh_sites(torch, aln, newick: str, tmp: str, mesh, distinct: bool) -> dict:
+    """(e): every per-site solve that the JAX package shards, but FEL's,
+    sharded against unsharded on one capped global fit; MEME's stages also
+    profiled both ways; then the grid pass and the EBFs over (card, host)."""
+    import numpy as np
+
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.data.alignment import Alignment, read_alignment
+    from hyphy_tpu_torch.data.filter import DataFilter
+    from hyphy_tpu_torch.data.genetic_code import AMINO_ACIDS
+    from hyphy_tpu_torch.likelihood import LikelihoodFunction, Partition
+    from hyphy_tpu_torch.methods import (common, contrast_fel, contrast_meme, fade, fubar,
+                                         leisr, meme, prime)
+    from hyphy_tpu_torch.methods.grid_bayes import posterior_over_grid
+    from hyphy_tpu_torch.models import frequencies as freq_mod
+    from hyphy_tpu_torch.models.codon import MG94Base
+    from hyphy_tpu_torch.models.protein import EmpiricalProtein
+    from hyphy_tpu_torch.optimize import nelder_mead
+    from hyphy_tpu_torch.parallel.mesh import data_mesh
+    from hyphy_tpu_torch.tree.topology import Tree
+
+    t_setup = time.perf_counter()
+    fasta = _cut_fasta(aln, os.path.join(tmp, "mesh_sites.fasta"), MESH_SITE_CODONS)
+    tree = Tree.from_newick(newick)
+    clades = _contrast_clades(tree, MESH_SITE_CLADES)
+    labelled = _labelled_newick(
+        tree, np.maximum(np.asarray(tree.input_lengths[:-1]), 1e-6),
+        {nd: lbl for lbl, clade in zip(CONTRAST_LABELS, clades) for nd in clade})
+    rng = np.random.default_rng(SEED)
+    prot = Alignment(list(aln.names), ["".join(rng.choice(list(AMINO_ACIDS), MESH_SITE_CODONS))
+                                       for _ in aln.names])
+    pfilt = DataFilter.from_alignment(prot, "protein")
+    ptree = Tree.from_newick(newick, leaf_order=pfilt.names)
+    nfilt = DataFilter.from_alignment(read_alignment(fasta), "nucleotide")
+    ntree = Tree.from_newick(newick, leaf_order=nfilt.names)
+    saved = (settings.warmup, settings.mesh, nelder_mead._WARMUP_ITERATIONS,
+             os.environ.get("HYPHY_TPU_NM_FUSED"))
+    settings.warmup, settings.mesh = True, (DEVICE,)
+    nelder_mead._WARMUP_ITERATIONS = MESH_SITE_NM
+    os.environ["HYPHY_TPU_NM_FUSED"] = "1"
+    res = {"codons": MESH_SITE_CODONS, "nelder_mead_cap": MESH_SITE_NM}
+    try:
+        data = common.load_codon_data(fasta, tree_newick=newick, device=DEVICE)
+        gtr = common.fit_gtr(data)
+        mg = common.fit_partitioned_mg94(data, gtr)
+        cdata = contrast_fel.load_multigroup(fasta, "Universal", labelled, list(CONTRAST_LABELS),
+                                             device=DEVICE)
+        _, cmg = contrast_fel.global_fits(cdata, 1e-3)
+        dtype = settings.likelihood_dtype(DEVICE)
+        nmodel = leisr._nucleotide_model("GTR", nfilt, DEVICE)
+        nfit = leisr.fit_baseline(LikelihoodFunction([Partition(nfilt, ntree, nmodel)],
+                                                     device=DEVICE), ntree, 1e-3)
+        nloglik_on = leisr.site_log_likelihood_on(nmodel, nfit.params, nfilt, ntree, dtype,
+                                                  spectral=dtype == torch.float64)
+        torch.cuda.synchronize()
+        res["setup_s"] = time.perf_counter() - t_setup
+        res["patterns"] = data.codon_filter.n_patterns
+
+        corners, codon_freqs = freq_mod.cf3x4(data.codon_filter, data.genetic_code,
+                                              device=DEVICE)
+        grid_model = MG94Base(data.genetic_code, corners, codon_freqs, device=DEVICE)
+        theta = {k: v.to(DEVICE) for k, v in gtr.params.items() if k.startswith("theta")}
+        grid_t = torch.as_tensor(fubar.alpha_beta_grid(MESH_SITE_GRID), device=DEVICE)
+        times = torch.as_tensor(3.0 * gtr.branch_lengths, device=DEVICE)
+
+        def fubar_pass(gp):
+            def run():
+                sll = fubar.grid_pass(gp, grid_t, times)
+                cond = fubar.conditionals(sll.double().cpu().numpy(), data.codon_filter)
+                return {"sll": sll, "posterior": torch.as_tensor(
+                    posterior_over_grid("Variational-Bayes", cond)[0])}
+            return run
+
+        fade_gp = fade.grid_pruning(
+            EmpiricalProtein("WAG", frequencies=freq_mod.empirical_character(pfilt),
+                             device=DEVICE), pfilt, ptree,
+            torch.as_tensor(np.maximum(ptree.input_lengths[:-1], 1e-3), device=DEVICE),
+            ptree.select_branches("All"))
+        fade_grid = torch.as_tensor(fade.define_grid(MESH_SITE_GRID), device=DEVICE)
+        sites = meme.mixture_sites(data, mg, dtype, spectral=dtype == torch.float64,
+                                   rate_classes=2)
+        specs = meme._specs(2, False, {})
+        n = data.codon_filter.n_patterns
+        tested_idx = np.nonzero(data.tested_branches)[0]
+        held = {}
+
+        def meme_stages_of(stage_sites, n_items):
+            def run():
+                out = meme.site_pipeline(stage_sites, specs, {}, False, n_items, DEVICE)
+                return {f"{stage}_{k}": v for stage, fitted in zip(("fel", "alt", "null"), out)
+                        for k, v in fitted.items()}
+            return run
+
+        meme_stages = meme_stages_of(sites, n)
+
+        def meme_ebf():
+            alt = {k[4:]: v for k, v in held["meme_stages"].items() if k.startswith("alt_")}
+            return {"ebf": torch.as_tensor(meme.branch_ebfs(sites, alt, tested_idx))}
+
+        groups = np.asarray(cdata.branch_groups)
+        job_sites = np.arange(min(len(mesh), cdata.codon_filter.n_patterns))
+        job_groups = np.stack([rng.permutation(groups) for _ in job_sites])
+        dists = torch.as_tensor(np.stack(prime.property_distance_tensors(data.genetic_code)),
+                                dtype=torch.float64, device=DEVICE)
+
+        def leisr_sites():
+            def run():
+                out = leisr.fit_sites(nloglik_on, nfilt.n_patterns,
+                                      leisr._site_bytes(ntree, dtype, nmodel.n_states), DEVICE)
+                return dict(zip(("r", "lo", "hi", "global", "local"),
+                                (torch.as_tensor(v) for v in out)))
+            return run
+
+        def tensors(out):
+            return {k: torch.as_tensor(v) for k, v in out.items()}
+
+        calls = [
+            ("fubar_grid", fubar_pass(fubar.grid_pruning(data, grid_model, theta)), True),
+            ("fade_target", lambda: {"sll": fade.grid_pass(fade_gp, fade_grid,
+                                                           AMINO_ACIDS.index(FADE_TARGET))},
+             True),
+            ("meme_stages", meme_stages, False),
+            ("meme_ebf", meme_ebf, False),
+            ("contrast_fel", lambda: dict(zip(
+                ("alpha", "betas", "alt_lnl", "null_lnl", "pair_lnl"),
+                (torch.as_tensor(v) for v in contrast_fel.fit_sites(cdata, cmg, True)))), False),
+            ("contrast_meme_fits", lambda: tensors(contrast_meme.fit_sites(cdata, cmg, True)),
+             False),
+            ("contrast_meme_permutation", lambda: {"lrt": torch.as_tensor(
+                contrast_meme.permutation_lrts(cdata, cmg, True, job_sites, job_groups))}, False),
+            ("prime", lambda: tensors(prime.fit_sites(data, mg, dists)), False),
+            ("leisr", leisr_sites(), False),
+        ]
+        # bit for bit on cards; a (card, host) mesh is (b)-(c)'s and below
+        bound = 0.0 if all(d.type == "cuda" for d in data_mesh(mesh)) else MESH_MIXED_SITE_REL
+        res["calls"] = {}
+        for name, run, grid in calls:
+            res["calls"][name], held[name], _ = _mesh_site_hold(torch, name, run, mesh, bound,
+                                                                grid)
+        # on distinct cards, MEME's stages profiled both ways (warm: they ran
+        # twice above)
+        for tag, m in (("unsharded", (DEVICE,)), ("sharded", mesh)) if distinct else ():
+            settings.mesh = m
+            res["calls"]["meme_stages"][f"overlap_{tag}"] = _mesh_overlap(
+                torch, meme_stages, os.path.join("chiprun_out", f"profile_mesh_meme_{tag}.txt"),
+                warm=False)
+            log(f"[mesh] (e) MEME stages {tag}, profiled: "
+                f"{res['calls']['meme_stages'][f'overlap_{tag}']}")
+        settings.mesh = (DEVICE,)
+
+        # over (card, host) in fp64: the grid pass and MEME's stages on a few
+        # sites
+        mixed = data_mesh((DEVICE, "cpu"))
+        os.environ["HYPHY_TPU_PRECISION"] = "float64"
+        res["mixed"] = {}
+        for name, run, grid in (
+                ("fubar_grid", fubar_pass(fubar.grid_pruning(data, grid_model, theta)), True),
+                ("meme_stages", meme_stages_of(meme.mixture_sites(
+                    data, mg, torch.float64, True, 2), MESH_MIXED_SITES), False)):
+            res["mixed"][name], _, _ = _mesh_site_hold(torch, f"{name} (card, host) fp64", run,
+                                                       mixed, MESH_MIXED_SITE_REL, grid)
+    finally:
+        settings.warmup, settings.mesh, nelder_mead._WARMUP_ITERATIONS, fused = saved
+        os.environ.pop("HYPHY_TPU_PRECISION", None)
+        if fused is None:
+            os.environ.pop("HYPHY_TPU_NM_FUSED", None)
+        else:
+            os.environ["HYPHY_TPU_NM_FUSED"] = fused
+    return res
+
+
+def _mesh_width(torch, aln, newick: str, sim_aln, sim_newick: str, tmp: str, mesh) -> dict:
+    """(f), ``--mesh-width``: the per-site stages at the widths of the
+    default phases, on one card and over ``mesh`` (every card of the host):
+    FEL's per-site stage on phase 4's input (N_TAXA x N_CODONS, the global
+    fit capped as phase 4 runs it) and MEME's three stages on phase 11's
+    (the planted alignment's first MEME_CODONS codons, its fits capped), as
+    a user runs them (the sequential Nelder-Mead probes).  Over the mesh
+    once under the profiler (which warms every card: per-card kernel
+    windows and their overlap), then timed; then on one card, timed; the
+    outputs equal bit for bit.  What decides whether the automatic mesh
+    splits a per-site solve."""
+    import numpy as np
+
+    from hyphy_tpu_torch.config import settings
+    from hyphy_tpu_torch.methods import common, fel, meme
+
+    res = {"mesh": [str(d) for d in mesh]}
+    saved = settings.warmup, settings.mesh
+    settings.warmup, settings.mesh = True, (DEVICE,)
+    try:
+        fasta = os.path.join(tmp, "mesh_width.fasta")
+        _write_fasta(fasta, aln.names, aln.sequences)
+        t0 = time.perf_counter()
+        run = fel.run(fasta, tree=newick, device=DEVICE)      # on one card
+        torch.cuda.synchronize()
+        res["fel_run_s"] = time.perf_counter() - t0
+        res["fel_sites"] = int(run.site_table.shape[0])
+
+        t0 = time.perf_counter()
+        data = common.load_codon_data(_cut_fasta(sim_aln, os.path.join(
+            tmp, "mesh_width_meme.fasta"), MEME_CODONS), tree_newick=sim_newick, device=DEVICE)
+        mg = common.fit_partitioned_mg94(data, common.fit_gtr(data))
+        dtype = settings.likelihood_dtype(DEVICE)
+        sites = meme.mixture_sites(data, mg, dtype, spectral=dtype == torch.float64,
+                                   rate_classes=2)
+        specs = meme._specs(2, False, {})
+        n = data.codon_filter.n_patterns
+        torch.cuda.synchronize()
+        res["meme_fits_s"] = time.perf_counter() - t0
+        res["meme_sites"] = n
+
+        def fel_stage():
+            return [fel.solve_partition(run.data, run.mg94)[0]]
+
+        def meme_stages():
+            out = meme.site_pipeline(sites, specs, {}, False, n, DEVICE)
+            return [v.double().cpu().numpy() for fitted in out
+                    for _, v in sorted(fitted.items())]
+
+        for name, stage in (("fel", fel_stage), ("meme", meme_stages)):
+            row = res[name] = {}
+            settings.mesh = mesh
+            row["overlap_sharded"] = _mesh_overlap(
+                torch, stage, os.path.join("chiprun_out", f"profile_width_{name}_sharded.txt"),
+                warm=False)
+            t0 = time.perf_counter()
+            sharded = stage()
+            torch.cuda.synchronize()
+            row["sharded_s"] = time.perf_counter() - t0
+            settings.mesh = (DEVICE,)
+            t0 = time.perf_counter()
+            one = stage()
+            torch.cuda.synchronize()
+            row["unsharded_s"] = time.perf_counter() - t0
+            row["sharded_over_unsharded"] = row["sharded_s"] / row["unsharded_s"]
+            row["equal"] = all(np.array_equal(a, b, equal_nan=True) for a, b in zip(sharded, one))
+            log(f"[mesh] (f) {name} per-site stage(s) at full width over {res['mesh']}: "
+                f"sharded {row['sharded_s']:.3f} s, one card {row['unsharded_s']:.3f} s "
+                f"({row['sharded_over_unsharded']:.3f}x); equal {row['equal']}; profiled "
+                f"sharded {row['overlap_sharded']}")
+            check(row["equal"] and len(sharded) == len(one),
+                  f"(f) {name}: the sharded stage is off the one-card stage")
+    finally:
+        settings.warmup, settings.mesh = saved
+    log(f"[mesh] (f) fel.run on {N_TAXA} x {N_CODONS} (one card, capped) {res['fel_run_s']:.2f} "
+        f"s; MEME's fits on {MEME_CODONS} codons {res['meme_fits_s']:.2f} s")
+    return res
+
+
+def phase_mesh_width(torch, aln, newick: str, sim_aln, sim_tree: str, tmp: str) -> dict:
+    """``--mesh-width``: (f) over every card of the host (four shards of the
+    one card on a host with one); K1 launches counted from 0 around it (the
+    global fits launch them; the per-site routes launch none)."""
+    from hyphy_tpu_torch.ops.level_products import level_products
+    from hyphy_tpu_torch.parallel.mesh import data_mesh
+
+    mesh = data_mesh(None if torch.cuda.device_count() >= 2 else (DEVICE,) * MESH_SHARDS)
+    with open(sim_tree) as fh:
+        sim_newick = fh.read()
+    level_products.launches = 0
+    res = _mesh_width(torch, aln, newick, sim_aln, sim_newick, tmp, mesh)
+    res["level_products_launches"] = level_products.launches
+    check(res["level_products_launches"] > 0, "(f) launched no K1")
+    return res
+
+
 def phase_mesh(torch, aln, newick: str, sim_aln, sim_tree: str, tmp: str) -> dict:
-    """Phase 30, the device mesh (``parallel/mesh.py``): (a)-(d) above; K1
+    """Phase 30, the device mesh (``parallel/mesh.py``): (a)-(e) above; K1
     launches counted from 0 around them."""
     from hyphy_tpu_torch.ops.level_products import level_products
 
@@ -5548,8 +5944,11 @@ def phase_mesh(torch, aln, newick: str, sim_aln, sim_tree: str, tmp: str) -> dic
     res["gene"] = stage("gene", _mesh_gene, torch, aln, newick, mesh, distinct)
     small_aln, small_newick, small_fasta = _mesh_small_input(tmp)
     res["mixed"] = stage("mixed", _mesh_mixed, torch, small_aln, small_newick)
-    res["fel"] = stage("fel", _mesh_fel, torch, small_fasta, small_newick, mesh,
-                       f"{MESH_SMALL_TAXA} x {MESH_SMALL_CODONS}", MESH_TABLE_ATOL)
+    # the per-site solves on one card over MESH_SITE_SHARDS shards of it
+    site_mesh = mesh if distinct else data_mesh((DEVICE,) * MESH_SITE_SHARDS)
+    res["fel"] = stage("fel", _mesh_fel, torch, small_fasta, small_newick, site_mesh,
+                       f"{MESH_SMALL_TAXA} x {MESH_SMALL_CODONS}", MESH_TABLE_ATOL, None,
+                       distinct)
     # the per-site solves on distinct devices whatever the host's count: a
     # tensor left on the first device fails there
     mixed_fasta = _cut_fasta(small_aln, os.path.join(tmp, "mesh_mixed.fasta"),
@@ -5561,6 +5960,8 @@ def phase_mesh(torch, aln, newick: str, sim_aln, sim_tree: str, tmp: str) -> dic
     with open(sim_tree) as fh:
         sim_newick = fh.read()
     res["busted"] = stage("busted", _mesh_busted, torch, sim_aln, sim_newick, mesh)
+    res["sites"] = stage("sites", _mesh_sites, torch, small_aln, small_newick, tmp, site_mesh,
+                         distinct)
     res["level_products_launches"] = level_products.launches
     res["stages_s"] = stages
     log(f"[mesh] stages, s: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
@@ -5588,6 +5989,8 @@ def main(argv) -> int:
     precision_check = "--precision-check" in argv
     busted_check = "--busted-check" in argv
     relax_check = "--relax-check" in argv
+    mesh_only = "--mesh" in argv
+    mesh_width = "--mesh-width" in argv
     with tempfile.TemporaryDirectory() as tmp:
         if precision_check:
             record["precision"] = phase_precision(torch, tmp)
@@ -5598,9 +6001,16 @@ def main(argv) -> int:
         elif relax_check:
             record["relax_check"] = phase_relax_check(torch, tmp)
             main_phases = ("relax_check",)
+        elif mesh_only or mesh_width:
+            aln, newick, _, _ = _write_inputs(tmp)
+            sim_aln, _, sim_tree = _planted_alignment(tmp)
+            name, phase = (("mesh", phase_mesh) if mesh_only
+                           else ("mesh_width", phase_mesh_width))
+            record[name] = phase(torch, aln, newick, sim_aln, sim_tree, tmp)
+            main_phases = (name,)
         else:
             main_phases = _default_phases(torch, record, tmp, full_fit)
-    checks = precision_check or busted_check or relax_check
+    checks = precision_check or busted_check or relax_check or mesh_only or mesh_width
 
     wide = next(r for r in record["kernels"]["shapes"]
                 if r["shape"] == list(KERNEL_SHAPES[1]) and r["dtype"] == "float32")

@@ -81,9 +81,13 @@ class Settings:
         for a gene that fits on it (PERF.md), and is engaged only where
         one card cannot hold the gene.  ``nbytes=None`` (a per-site
         solve, which ``chunked_site_solve`` already fits to one card's
-        memory) never engages it.  Every device goes through
-        :func:`resolve_device`, so a mesh naming CUDA without a card
-        raises.  The JAX package leaves fp64 unsharded on an accelerator,
+        memory) never engages it: its blocks run from one host thread
+        each, every block issues as many launches as one card does for all
+        the items, and four H100s ran FEL's per-site stage 13x slower than
+        one card at 48 taxa x 128 codons and 6.4x slower at 1000 x 2048
+        (PERF.md).
+        Every device goes through :func:`resolve_device`, so a mesh naming
+        CUDA without a card raises.  The JAX package leaves fp64 unsharded on an accelerator,
         because its fp64 stages run on the host CPU; the port runs fp64 on
         the card, and shards it like fp32."""
         if os.environ.get("HYPHY_TPU_MESH", "auto").lower() in ("0", "off", "none", "no"):

@@ -58,6 +58,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
@@ -223,15 +224,18 @@ int launch_one(const T* cc, const T* cp, T* out, int W, int K, int P, int S,
   if (smem != L::smem_bytes(S) || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (W == 0 || P == 0) return 0;
   auto kernel = level_products_kernel<T, SG, RP>;
-  // the opt-in above 48 KB is per function and device; set it once each
-  static bool opted_in[kMaxDevices] = {};
+  // the opt-in above 48 KB is per function and device; set it once each.
+  // Host threads launch at once (one per block of a sharded solve), so the
+  // flags are atomic; two threads that both see false both set the same
+  // attribute, which is harmless.
+  static std::atomic<bool> opted_in[kMaxDevices];     // static: zero, false
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || !opted_in[dev]) {
+  if (dev >= kMaxDevices || !opted_in[dev].load(std::memory_order_acquire)) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) opted_in[dev] = true;
+    if (dev < kMaxDevices) opted_in[dev].store(true, std::memory_order_release);
   }
   const int n_tiles = (P + L::kTile - 1) / L::kTile;
   kernel<<<dim3(n_tiles, W), kThreads, smem, stream>>>(cc, cp, out, K, P, S);

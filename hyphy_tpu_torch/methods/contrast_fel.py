@@ -23,8 +23,10 @@ reconstruction (contrast-fel.bf:786-800), as in SLAC, in fp64.
 The per-site route is FEL's (:func:`fel.site_log_likelihood`) with the
 branch sets as its group vector, G = testable sets + background: fp64
 spectral as the reference, fp32 (the card's default) the Taylor vector
-action.  Every site of a stage is fitted at once in chunks by the card's
-free memory, as in FEL.
+action.  Every site of a stage is fitted at once, as in FEL: the sites
+split over the mesh that ``settings.mesh`` names, each block from a host
+thread of its own with the objective built on its device, and on each
+device in chunks by the block's share of its free memory.
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ from hyphy_tpu_torch.methods import common, fel
 from hyphy_tpu_torch.methods.slac import _leaf_state_coding
 from hyphy_tpu_torch.models.parameters import ParamSpec
 from hyphy_tpu_torch.ops import ancestral, pruning
-from hyphy_tpu_torch.optimize.batched import chunked_site_solve, grid_best_starts
+from hyphy_tpu_torch.optimize.batched import grid_best_starts
 from hyphy_tpu_torch.optimize.nelder_mead import vmapped_nelder_mead
+from hyphy_tpu_torch.parallel.mesh import per_device, sharded_site_solve
 from hyphy_tpu_torch.tree.topology import Tree
 
 
@@ -166,7 +169,8 @@ def global_fits(data: common.LoadedData, precision: float):
 
 def fit_sites(data: common.LoadedData, mg: common.MG94Fit, srv: bool):
     """The per-site stage: the alternative from the {0.1, 1} start grid, the
-    overall null and the pairwise nulls, every pattern at once in chunks.
+    overall null and the pairwise nulls, every pattern at once, split over
+    the mesh that ``settings.mesh`` names and in chunks on each device.
     Returns numpy (alpha [n], betas [n, G], alt lnL, null lnL, pairwise lnL
     [n, pairs])."""
     n_testable, has_background, n_groups = set_counts(data)
@@ -174,72 +178,77 @@ def fit_sites(data: common.LoadedData, mg: common.MG94Fit, srv: bool):
     device = model.device
     dtype = settings.likelihood_dtype(device)
     groups = np.asarray(data.branch_groups)
-    loglik = fel.site_log_likelihood(data, mg, dtype, spectral=dtype == torch.float64,
-                                     groups=groups)
-    f64 = dict(dtype=torch.float64, device=device)
     beta_names = [f"beta_{g}" for g in range(n_groups)]
     rate = ParamSpec(init=1.0, lower=0.0, upper=10000.0)
-
-    def alpha(idx, p):
-        return p["alpha"] if srv else torch.ones(idx.shape[0], **f64)
-
-    def alt_loglik(idx, p):
-        return loglik(idx, alpha(idx, p), torch.stack([p[n] for n in beta_names], dim=1))
-
     # cartesian {0.1, 1} start grid per beta scaler (contrast-fel.bf:747)
     combos = np.array(list(itertools.product([0.1, 1.0], repeat=n_groups)))
-    grid = {name: torch.tensor(combos[:, g], **f64) for g, name in enumerate(beta_names)}
     specs = {name: rate for name in beta_names}
     if srv:
         specs["alpha"] = rate
-        grid["alpha"] = torch.ones(len(combos), **f64)
     tie_background = has_background and n_testable == 1
     pairs = list(itertools.combinations(range(n_testable), 2)) if n_testable > 2 else []
 
-    def fit(idx):
-        starts, _ = grid_best_starts(alt_loglik, grid, idx)
-        alt_params, alt_lnl = vmapped_nelder_mead(alt_loglik, specs, starts, idx)
-        betas_alt = torch.stack([alt_params[n] for n in beta_names], dim=1)     # [N, G]
-
-        # overall null: all testable betas equal (background tied when only
-        # one testable set), contrast-fel.bf:836-845
-        null_specs = {"beta_common": rate}
-        null_start = {"beta_common": betas_alt[:, :n_testable].mean(dim=1)}
-        if has_background and not tie_background:
-            null_specs["beta_bg"] = rate
-            null_start["beta_bg"] = alt_params[beta_names[-1]]
+    @per_device
+    def make_solver(dev):
+        """The objectives and the fit of every item, on ``dev``."""
+        loglik = fel.site_log_likelihood(data, mg.to(dev), dtype,
+                                         spectral=dtype == torch.float64, groups=groups)
+        f64 = dict(dtype=torch.float64, device=dev)
+        grid = {name: torch.tensor(combos[:, g], **f64) for g, name in enumerate(beta_names)}
         if srv:
-            null_specs["alpha"] = rate
-            denom = n_testable + int(has_background)
-            null_start["alpha"] = torch.clamp_max(
-                (alt_params["alpha"] + denom * betas_alt.sum(dim=1)) / denom, 10.0)
+            grid["alpha"] = torch.ones(len(combos), **f64)
 
-        def null_loglik(i, p):
-            parts = [p["beta_common"]] * n_testable
-            if has_background:
-                parts.append(p["beta_common"] if tie_background else p["beta_bg"])
-            return loglik(i, alpha(i, p), torch.stack(parts, dim=1))
+        def alpha(idx, p):
+            return p["alpha"] if srv else torch.ones(idx.shape[0], **f64)
 
-        _, null_lnl = vmapped_nelder_mead(null_loglik, null_specs, null_start, idx)
+        def alt_loglik(idx, p):
+            return loglik(idx, alpha(idx, p), torch.stack([p[n] for n in beta_names], dim=1))
 
-        # pairwise nulls for >2 testable sets: beta_g2 := beta_g1 (df = 1)
-        pair_lnls = []
-        for g1, g2 in pairs:
-            p_specs = {k: v for k, v in specs.items() if k != beta_names[g2]}
-            p_start = {k: alt_params[k] for k in p_specs}
+        def fit(idx):
+            starts, _ = grid_best_starts(alt_loglik, grid, idx)
+            alt_params, alt_lnl = vmapped_nelder_mead(alt_loglik, specs, starts, idx)
+            betas_alt = torch.stack([alt_params[n] for n in beta_names], dim=1)     # [N, G]
 
-            def pair_loglik(i, p, g1=g1, g2=g2):
-                parts = [p[beta_names[g1]] if g == g2 else p[beta_names[g]]
-                         for g in range(n_groups)]
+            # overall null: all testable betas equal (background tied when only
+            # one testable set), contrast-fel.bf:836-845
+            null_specs = {"beta_common": rate}
+            null_start = {"beta_common": betas_alt[:, :n_testable].mean(dim=1)}
+            if has_background and not tie_background:
+                null_specs["beta_bg"] = rate
+                null_start["beta_bg"] = alt_params[beta_names[-1]]
+            if srv:
+                null_specs["alpha"] = rate
+                denom = n_testable + int(has_background)
+                null_start["alpha"] = torch.clamp_max(
+                    (alt_params["alpha"] + denom * betas_alt.sum(dim=1)) / denom, 10.0)
+
+            def null_loglik(i, p):
+                parts = [p["beta_common"]] * n_testable
+                if has_background:
+                    parts.append(p["beta_common"] if tie_background else p["beta_bg"])
                 return loglik(i, alpha(i, p), torch.stack(parts, dim=1))
 
-            pair_lnls.append(vmapped_nelder_mead(pair_loglik, p_specs, p_start, idx)[1])
-        pair_lnl = (torch.stack(pair_lnls, dim=1) if pair_lnls
-                    else torch.zeros((idx.shape[0], 0), **f64))
-        return {"alpha": alpha(idx, alt_params), "betas": betas_alt, "alt_lnl": alt_lnl,
-                "null_lnl": null_lnl, "pair_lnl": pair_lnl}
+            _, null_lnl = vmapped_nelder_mead(null_loglik, null_specs, null_start, idx)
 
-    out = chunked_site_solve(fit, data.codon_filter.n_patterns,
+            # pairwise nulls for >2 testable sets: beta_g2 := beta_g1 (df = 1)
+            pair_lnls = []
+            for g1, g2 in pairs:
+                p_specs = {k: v for k, v in specs.items() if k != beta_names[g2]}
+                p_start = {k: alt_params[k] for k in p_specs}
+
+                def pair_loglik(i, p, g1=g1, g2=g2):
+                    parts = [p[beta_names[g1]] if g == g2 else p[beta_names[g]]
+                             for g in range(n_groups)]
+                    return loglik(i, alpha(i, p), torch.stack(parts, dim=1))
+
+                pair_lnls.append(vmapped_nelder_mead(pair_loglik, p_specs, p_start, idx)[1])
+            pair_lnl = (torch.stack(pair_lnls, dim=1) if pair_lnls
+                        else torch.zeros((idx.shape[0], 0), **f64))
+            return {"alpha": alpha(idx, alt_params), "betas": betas_alt, "alt_lnl": alt_lnl,
+                    "null_lnl": null_lnl, "pair_lnl": pair_lnl}
+        return fit
+
+    out = sharded_site_solve(make_solver, data.codon_filter.n_patterns,
                              fel._site_bytes(data, dtype, model.n_states, n_groups), device)
     return tuple(out[k].double().cpu().numpy()
                  for k in ("alpha", "betas", "alt_lnl", "null_lnl", "pair_lnl"))

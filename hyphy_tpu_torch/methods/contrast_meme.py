@@ -35,7 +35,11 @@ the spectral mixture, fp32 (the card's default) the Taylor ``mix_weights``
 mode.  Each item carries its own branch-to-set map, scattered into the
 routes' per-item weight table (``pruning.dense_mixture_weights``): the data's for the site fits, a permuted one for each
 permutation job, so every (site, permutation) pair is one item of one
-batched solve, in chunks by the card's free memory.
+batched solve.  The items split over the mesh that ``settings.mesh`` names,
+each block from a host thread of its own with :class:`SetMixture` and its
+item tables built on its device (the permutations and the start grid are
+drawn on the host first), and on each device in chunks by the block's
+share of its free memory.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from hyphy_tpu_torch.config import settings
+from hyphy_tpu_torch.config import canonical_device, settings
 from hyphy_tpu_torch.io.json_out import analysis_json
 from hyphy_tpu_torch.methods import common, fel
 from hyphy_tpu_torch.methods.contrast_fel import (
@@ -63,8 +67,9 @@ from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
 from hyphy_tpu_torch.models.parameters import ParamSpec
 from hyphy_tpu_torch.ops import expm as expm_ops
 from hyphy_tpu_torch.ops import pruning
-from hyphy_tpu_torch.optimize.batched import chunked_site_solve, grid_best_starts
+from hyphy_tpu_torch.optimize.batched import grid_best_starts
 from hyphy_tpu_torch.optimize.nelder_mead import vmapped_nelder_mead
+from hyphy_tpu_torch.parallel.mesh import per_device, sharded_site_solve, to_device
 
 _PREFIXES = ("b1", "b2", "pr")
 _N_LHC = 24
@@ -277,6 +282,69 @@ def permutation_stage(model: _Model, specs, grid, idx):
     return alt_lnl, null_lnl
 
 
+def _site_solve(data: common.LoadedData, mg: common.MG94Fit, srv: bool, sites: np.ndarray,
+                groups: Optional[np.ndarray], stage) -> Dict[str, torch.Tensor]:
+    """``stage(model, specs, grid, idx) -> {k: [n, ...]}`` over the items
+    that map to data patterns ``sites`` with branch-to-set maps ``groups``
+    (``[items, branches]``; None: the data's), split over the mesh that
+    ``settings.mesh`` names: on each block's device its :class:`SetMixture`,
+    its item tables and a copy of the start grid, drawn once here."""
+    dev = canonical_device(mg.model.device)
+    dtype = settings.likelihood_dtype(dev)
+    _, _, n_groups = set_counts(data)
+    specs = _specs(n_groups, srv)
+    grid = _start_grid(n_groups, srv, dev)
+    mix = set_mixture(data, mg, dtype, spectral=dtype == torch.float64)
+
+    @per_device
+    def make_solver(d):
+        mix_d = mix if d == dev else set_mixture(data, mg.to(d), dtype,
+                                                 spectral=dtype == torch.float64)
+        model = _Model(mix_d, data, srv, torch.as_tensor(sites, device=d),
+                       None if groups is None
+                       else torch.as_tensor(groups, dtype=torch.int64, device=d))
+        grid_d = {k: to_device(v, d) for k, v in grid.items()}
+        return lambda idx: stage(model, specs, grid_d, idx)
+
+    return sharded_site_solve(make_solver, len(sites), mix.item_bytes, dev)
+
+
+def fit_sites(data: common.LoadedData, mg: common.MG94Fit, srv: bool) -> Dict[str, np.ndarray]:
+    """The per-site stage: every pattern's alternative from the best
+    Latin-hypercube start, its overall null and its pairwise nulls.
+    Returns numpy {alpha, b1, b2, pr (each [n, G] but alpha), alt_lnl,
+    null_lnl, pair_lnl [n, pairs]}."""
+    names = _names(set_counts(data)[2])
+
+    def fit(model, specs, grid, idx):
+        alt_params, alt_lnl = alternative_stage(model, specs, grid, idx)
+        _, null_lnl = null_stage(model, specs, idx, alt_params)
+        out = {"alt_lnl": alt_lnl, "null_lnl": null_lnl,
+               "pair_lnl": pairwise_stage(model, specs, idx, alt_params),
+               "alpha": (alt_params["alpha"] if srv else
+                         torch.ones(idx.shape[0], dtype=torch.float64, device=idx.device))}
+        for pre in _PREFIXES:
+            out[pre] = torch.stack([alt_params[n] for n in names[pre]], dim=1)
+        return out
+
+    fitted = _site_solve(data, mg, srv, np.arange(data.codon_filter.n_patterns), None, fit)
+    return {k: v.double().cpu().numpy() for k, v in fitted.items()}
+
+
+def permutation_lrts(data: common.LoadedData, mg: common.MG94Fit, srv: bool,
+                     job_sites: np.ndarray, job_groups: np.ndarray) -> np.ndarray:
+    """``[jobs]`` overall LRTs of the permutation jobs: pattern
+    ``job_sites[j]`` under the branch-to-set map ``job_groups[j]``, both
+    drawn by the caller."""
+    def fit(model, specs, grid, idx):
+        alt, null = permutation_stage(model, specs, grid, idx)
+        return {"alt_lnl": alt, "null_lnl": null}
+
+    perm = _site_solve(data, mg, srv, job_sites, job_groups, fit)
+    return np.maximum(2.0 * (perm["alt_lnl"].double().cpu().numpy()
+                             - perm["null_lnl"].double().cpu().numpy()), 0.0)
+
+
 def run(
     alignment: str,
     genetic_code: str = "Universal",
@@ -298,31 +366,11 @@ def run(
     n_patterns = filt.n_patterns
     n_testable, _, n_groups = set_counts(data)
     groups = np.asarray(data.branch_groups)
-    dev = mg.model.device
-    dtype = settings.likelihood_dtype(dev)
-    mix = set_mixture(data, mg, dtype, spectral=dtype == torch.float64)
-    specs = _specs(n_groups, srv)
-    grid = _start_grid(n_groups, srv, dev)
-    names = _names(n_groups)
-
-    site_model = _Model(mix, data, srv, torch.arange(n_patterns, device=dev), None)
-
-    def fit(idx):
-        alt_params, alt_lnl = alternative_stage(site_model, specs, grid, idx)
-        _, null_lnl = null_stage(site_model, specs, idx, alt_params)
-        out = {"alt_lnl": alt_lnl, "null_lnl": null_lnl,
-               "pair_lnl": pairwise_stage(site_model, specs, idx, alt_params),
-               "alpha": (alt_params["alpha"] if srv
-                         else torch.ones(idx.shape[0], dtype=torch.float64, device=dev))}
-        for pre in _PREFIXES:
-            out[pre] = torch.stack([alt_params[n] for n in names[pre]], dim=1)
-        return out
 
     common.progress("contrast-meme", "per-site alternative, null and pairwise fits")
-    fitted = chunked_site_solve(fit, n_patterns, mix.item_bytes, dev)
+    fitted = fit_sites(data, mg, srv)
     alpha_alt, b1_alt, b2_alt, pr_alt, alt_lnl, null_lnl, pair_lnl = (
-        fitted[k].double().cpu().numpy()
-        for k in ("alpha", "b1", "b2", "pr", "alt_lnl", "null_lnl", "pair_lnl"))
+        fitted[k] for k in ("alpha", "b1", "b2", "pr", "alt_lnl", "null_lnl", "pair_lnl"))
 
     df_overall = max(3, 3 * (n_testable - 1))
     p_corr, pairs = lrt_pvalues(alt_lnl, null_lnl, pair_lnl, n_testable, df_overall, 3)
@@ -344,18 +392,8 @@ def run(
                 job_sites.append(s)
                 job_groups.append(rng_p.permutation(groups))
         common.progress("contrast-meme", f"{len(job_sites)} permutation jobs")
-        perm_model = _Model(mix, data, srv, torch.as_tensor(np.array(job_sites), device=dev),
-                            torch.as_tensor(np.stack(job_groups), dtype=torch.int64, device=dev))
-
-        def perm_fit(idx):
-            alt, null = permutation_stage(perm_model, specs, grid, idx)
-            return {"alt_lnl": alt, "null_lnl": null}
-
-        perm = chunked_site_solve(perm_fit, len(job_sites), mix.item_bytes, dev)
-        lrt_perm = np.maximum(
-            2.0 * (perm["alt_lnl"].double().cpu().numpy()
-                   - perm["null_lnl"].double().cpu().numpy()), 0.0,
-        ).reshape(sig_sites.size, permutations)
+        lrt_perm = permutation_lrts(data, mg, srv, np.array(job_sites),
+                                    np.stack(job_groups)).reshape(sig_sites.size, permutations)
         p_perm_overall = np.vectorize(lambda x: common.chi2_sf(x, df_overall))(lrt_perm)
         for r, s in enumerate(sig_sites):
             hits = (p_perm_overall[r] <= min_p[s] + 1e-12).sum()

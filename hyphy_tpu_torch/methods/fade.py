@@ -22,9 +22,11 @@ collapsed Gibbs / MH, the shared ``grid_bayes``), per-site Prob[bias>0] and
 Bayes factors (FADE.bf:426-447).
 
 Each grid point is one gene pruning, through FUBAR's grid pass
-(``fubar.grid_pass``): the grid form of :func:`pruning.site_log_likelihoods`
+(``fubar.grid_pass``): the grid points split over the mesh that
+``settings.mesh`` names (this module's :class:`GridPruning` copied to each
+block's device), and the grid form of :func:`pruning.site_log_likelihoods`
 folds a chunk of grid points into K1's node axis, one launch per level for
-the chunk; the chunk is sized by the device's free memory
+the chunk; the chunk is sized by the block's share of the device's free memory
 (:func:`pruning.grid_point_bytes` plus the propagators) and capped by
 :func:`pruning.max_grid_points`.
 

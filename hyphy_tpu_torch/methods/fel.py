@@ -22,9 +22,10 @@ ones and keeps the asymptotic ones in a "p-asmp" column.
 
 Every site of a partition is fitted at once: one batched Nelder-Mead over
 all patterns, split over the device mesh that ``settings.mesh`` names
-(:func:`parallel.mesh.sharded_site_solve`: each device fits its contiguous
-block of patterns with an objective built on that device) and, on each
-device, in time when its free memory asks.  The per-site route follows
+(:func:`parallel.mesh.sharded_site_solve`: each block of contiguous
+patterns is fitted from a host thread of its own with an objective built
+on its device) and, on each device, in time when the block's share of its
+free memory asks.  The per-site route follows
 the compute dtype, as in the reference: fp64 takes the spectral route,
 fp32 (the card's default) the Taylor vector action.
 """

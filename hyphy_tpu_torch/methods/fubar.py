@@ -14,10 +14,13 @@ Each grid point is one whole gene pruning (``ops/pruning.py::
 site_log_likelihoods``, every level through the K1 kernel), and the grid is
 pruned twice (pass 1 picks the best overall scaling, pass 2 runs on the
 rebased tree).  The JAX package ``vmap``s the pruning over grid points and
-shards them over its mesh; here the grid form of the pruning folds a chunk
-of grid points into K1's node axis, one launch per level for the chunk,
-the chunks sized by the card's free memory and capped so that every level's
-launch stays within K1's node limit (:func:`grid_chunk`).
+shards them over its mesh; here the grid points are split over the mesh
+that ``settings.mesh`` names (``parallel/mesh.py::sharded_site_solve``,
+each block from a host thread of its own), and on each device the grid
+form of the pruning folds a chunk of grid points into K1's node axis, one
+launch per level for the chunk, the chunks sized by the block's share of
+the card's free memory and capped so that every level's launch stays
+within K1's node limit (:func:`pruning.max_grid_points`).
 Propagators per grid point follow the port's MG94 rule: fp64 spectral,
 fp32 (the card's default) shared-power Taylor.
 """
@@ -40,7 +43,7 @@ from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
 from hyphy_tpu_torch.models.codon import MG94Base
 from hyphy_tpu_torch.ops import expm as expm_ops
 from hyphy_tpu_torch.ops import pruning
-from hyphy_tpu_torch.optimize.batched import chunked_site_solve, site_chunk
+from hyphy_tpu_torch.parallel.mesh import per_device, sharded_site_solve, to_device
 
 
 def alpha_beta_grid(points: int = 20, non_zero: bool = False) -> np.ndarray:
@@ -114,32 +117,42 @@ def grid_pruning(data: common.LoadedData, model: MG94Base, theta) -> GridPruning
         + prop_bytes)
 
 
-def grid_chunk(gp: GridPruning, n_points: int, device, chunk: Optional[int] = None) -> int:
-    """Grid points per call of the grid form of the pruning: ``chunk``, or
-    as many as half the card's free memory holds (every point on the CPU),
-    and never more than keep each level's K1 launch within its node limit
-    (:func:`pruning.max_grid_points`)."""
-    if chunk is None:
-        chunk = site_chunk(n_points, gp.point_bytes, device)
-    return max(1, min(chunk, n_points, pruning.max_grid_points(gp.schedule)))
+def grid_pruning_to(gp, device):
+    """``gp`` (this module's :class:`GridPruning` or FADE's) with its
+    tensors and its schedule on ``device``: the inputs of one block of a
+    sharded grid pass."""
+    moved = {f.name: to_device(getattr(gp, f.name), device) for f in dataclasses.fields(gp)
+             if isinstance(getattr(gp, f.name), torch.Tensor)}
+    return dataclasses.replace(gp, schedule=pruning.data_to(gp.schedule, device), **moved)
 
 
 def grid_pass(gp: GridPruning, grid: torch.Tensor, times,
               chunk: Optional[int] = None) -> torch.Tensor:
     """``[G, patterns]`` site lnL at every grid point with branch scales
-    ``times``: the grid in chunks of :func:`grid_chunk` points, each chunk
-    one call of the grid form of the pruning.  ``gp`` is any grid pruning
-    whose ``propagators(points, times)`` gives the chunk's ``[n, branches,
-    S, S]`` (FADE's takes its target residue in place of ``times``)."""
-    def solver(idx):
-        with torch.no_grad():
-            p = gp.propagators(grid[idx], times)
-            return {"sll": pruning.site_log_likelihoods(p, gp.leaves, gp.freqs.to(gp.dtype),
-                                                        gp.schedule)}
+    ``times``: the grid points split over the mesh that ``settings.mesh``
+    names (:func:`parallel.mesh.sharded_site_solve`, each block's inputs
+    copied to its device), on each device in chunks of ``chunk`` points or
+    as many as the block's share of its card's free memory holds (every
+    point on the CPU), and never more than keep each level's K1 launch
+    within its node limit (:func:`pruning.max_grid_points`); each chunk is
+    one call of the grid form of the pruning.  ``gp``
+    is any grid pruning whose ``propagators(points, times)`` gives the
+    chunk's ``[n, branches, S, S]`` (FADE's takes its target residue in
+    place of ``times``)."""
+    @per_device
+    def make_solver(dev):
+        gp_d, grid_d = grid_pruning_to(gp, dev), to_device(grid, dev)
+        times_d = to_device(times, dev) if isinstance(times, torch.Tensor) else times
 
-    n_points = grid.shape[0]
-    return chunked_site_solve(solver, n_points, gp.point_bytes, grid.device,
-                              chunk=grid_chunk(gp, n_points, grid.device, chunk))["sll"]
+        def solver(idx):
+            with torch.no_grad():
+                p = gp_d.propagators(grid_d[idx], times_d)
+                return {"sll": pruning.site_log_likelihoods(
+                    p, gp_d.leaves, gp_d.freqs.to(gp_d.dtype), gp_d.schedule)}
+        return solver
+
+    return sharded_site_solve(make_solver, grid.shape[0], gp.point_bytes, grid.device,
+                              chunk=chunk, max_chunk=pruning.max_grid_points(gp.schedule))["sll"]
 
 
 def grid_site_loglik_matrix(

@@ -20,7 +20,8 @@ r = 0 and a lower bound of 0.
 
 The per-site route.  One generator ``Q`` serves every site; site ``n``'s
 branch ``b`` has ``expm(r_n t_b Q)``.  In fp64 (the CPU's default) that is
-the JAX package's route: one fp64 ``eigh`` of ``Q`` per run, each site's
+the JAX package's route: one fp64 ``eigh`` of ``Q`` per run (per device of
+the mesh that ``settings.mesh`` names, which splits the sites), each site's
 eigenvalues scaled by its ``r``.  In fp32 (the card's default) it is
 FEL's Taylor vector action on the generators ``r_n Q``: the profile's lower
 root probes ``r`` down to 1e-8, where the spectral propagator's off-diagonal
@@ -51,7 +52,7 @@ from hyphy_tpu_torch.models.parameters import ParamSpec
 from hyphy_tpu_torch.models.protein import EmpiricalProtein
 from hyphy_tpu_torch.ops import expm as expm_ops
 from hyphy_tpu_torch.ops import pruning
-from hyphy_tpu_torch.optimize.batched import chunked_site_solve
+from hyphy_tpu_torch.parallel.mesh import per_device, sharded_site_solve
 from hyphy_tpu_torch.optimize.nelder_mead import vmapped_nelder_mead
 from hyphy_tpu_torch.tree.topology import Tree
 
@@ -183,6 +184,15 @@ def site_log_likelihood(model, params, filt: DataFilter, tree: Tree, dtype: torc
     return loglik
 
 
+def site_log_likelihood_on(model, params, filt: DataFilter, tree: Tree, dtype: torch.dtype,
+                           spectral: bool):
+    """``dev -> loglik``: :func:`site_log_likelihood` with the model and the
+    baseline fit ``params`` copied to ``dev``, built once per device (the
+    blocks of a sharded :func:`fit_sites`)."""
+    return per_device(lambda dev: site_log_likelihood(
+        model.to(dev), {k: v.to(dev) for k, v in params.items()}, filt, tree, dtype, spectral))
+
+
 def _site_bytes(tree: Tree, dtype: torch.dtype, n_states: int) -> float:
     """One site's working set in a batched evaluation, FEL's rule
     (``fel._site_bytes``) at one generator."""
@@ -190,22 +200,29 @@ def _site_bytes(tree: Tree, dtype: torch.dtype, n_states: int) -> float:
     return itemsize * n_states * (8 * (tree.n_nodes + 1) + 14 * n_states)
 
 
-def fit_sites(loglik, n_patterns: int, bytes_per_item: float, device):
+def fit_sites(loglik_on, n_patterns: int, bytes_per_item: float, device):
     """Every pattern's rate: lnL at r = 1, the Nelder-Mead fit of r from 1,
-    the profile CI; in chunks of the device's free memory.  Returns
-    numpy (r, lower, upper, lnl_global, lnl_local)."""
-    def solver(idx):
-        with torch.no_grad():
-            ones = torch.ones(idx.shape[0], dtype=torch.float64, device=device)
-            lnl_global = loglik(idx, ones)
-            specs = {"r": ParamSpec(init=1.0, lower=0.0, upper=1e26)}
-            params, lnl_local = vmapped_nelder_mead(
-                lambda i, p: loglik(i, p["r"]), specs, {"r": ones}, idx)
-            lo, hi = vmapped_profile_ci(loglik, idx, params["r"], lnl_local)
-        return {"r": params["r"], "lo": lo, "hi": hi, "global": lnl_global,
-                "local": lnl_local}
+    the profile CI; the patterns split over the mesh that ``settings.mesh``
+    names, in chunks of each block's share of its device's free memory.
+    ``loglik_on(dev)``: the objective of :func:`site_log_likelihood` built
+    on ``dev`` (:func:`site_log_likelihood_on`).  Returns numpy (r, lower,
+    upper, lnl_global, lnl_local)."""
+    def make_solver(dev):
+        loglik = loglik_on(dev)
 
-    out = chunked_site_solve(solver, n_patterns, bytes_per_item, device)
+        def solver(idx):
+            with torch.no_grad():
+                ones = torch.ones(idx.shape[0], dtype=torch.float64, device=dev)
+                lnl_global = loglik(idx, ones)
+                specs = {"r": ParamSpec(init=1.0, lower=0.0, upper=1e26)}
+                params, lnl_local = vmapped_nelder_mead(
+                    lambda i, p: loglik(i, p["r"]), specs, {"r": ones}, idx)
+                lo, hi = vmapped_profile_ci(loglik, idx, params["r"], lnl_local)
+            return {"r": params["r"], "lo": lo, "hi": hi, "global": lnl_global,
+                    "local": lnl_local}
+        return solver
+
+    out = sharded_site_solve(make_solver, n_patterns, bytes_per_item, device)
     return tuple(out[k].to(torch.float64).cpu().numpy().copy()
                  for k in ("r", "lo", "hi", "global", "local"))
 
@@ -241,10 +258,10 @@ def run(
     common.progress("leisr", f"baseline {model} fit: lnL {res.loglik:.4f}")
 
     dtype = settings.likelihood_dtype(device)
-    loglik = site_log_likelihood(mdl, res.params, filt, tr, dtype,
-                                 spectral=dtype == torch.float64)
+    loglik_on = site_log_likelihood_on(mdl, res.params, filt, tr, dtype,
+                                       spectral=dtype == torch.float64)
     r_mle, lo, hi, lnl_global, lnl_local = fit_sites(
-        loglik, filt.n_patterns, _site_bytes(tr, dtype, mdl.n_states), device)
+        loglik_on, filt.n_patterns, _site_bytes(tr, dtype, mdl.n_states), device)
     common.progress("leisr", "per-site rates and profile CIs done")
 
     constant = filt.constant_pattern_mask()

@@ -15,17 +15,20 @@ forcing each tested branch into each non-positive class and comparing to
 the mixture likelihood (``meme.compute_branch_EBF``, MEME.bf:886); the
 "# branches under selection" column counts tested branches with
 EBF >= 100.  Each (site, tested branch, class) is one item of a batched
-mixture evaluation, the items chunked by the card's free memory.
+mixture evaluation.
 
 ``multiple_hits``: "Double"/"Double+Triple" adds 2- (delta) and 3-hit
 (psi) rates (MEME.bf:140-155); ``site_multihit`` = "Estimate" frees them
 per site, "Global" plugs in the global-fit MLEs (MEME.bf:478-481).
 
 Every stage fits all sites at once (batched grid, candidates and
-Nelder-Mead), in chunks by the device's free memory
-(:func:`chunked_site_solve`).  The per-site route follows the dtype, as in
-the reference: fp64 the spectral mixture, fp32 (the card's default) the
-Taylor vector action in its ``mix_weights`` mode.
+Nelder-Mead), the items split over the mesh that ``settings.mesh`` names,
+each block from a host thread of its own and with :class:`MixtureSites`
+built on its device, and on each device in chunks by its share of the
+free memory (:func:`parallel.mesh.sharded_site_solve`).  The per-site
+route follows the dtype, as in the reference: fp64 the spectral mixture,
+fp32 (the card's default) the Taylor vector action in its ``mix_weights``
+mode.
 
 ``resample`` > 0 replaces the mixture p-values by parametric-bootstrap ones
 (MEME.bf:1445-1470): ``resample`` columns are drawn under each non-constant
@@ -42,15 +45,16 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from hyphy_tpu_torch.config import settings
+from hyphy_tpu_torch.config import canonical_device, settings
 from hyphy_tpu_torch.io.json_out import analysis_json, analysis_json_parts, model_fit_entry
 from hyphy_tpu_torch.methods import common, fel
 from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
 from hyphy_tpu_torch.models.parameters import ParamSpec
 from hyphy_tpu_torch.ops import expm as expm_ops
 from hyphy_tpu_torch.ops import pruning
-from hyphy_tpu_torch.optimize.batched import chunked_site_solve, grid_best_starts
+from hyphy_tpu_torch.optimize.batched import grid_best_starts
 from hyphy_tpu_torch.optimize.nelder_mead import vmapped_nelder_mead
+from hyphy_tpu_torch.parallel.mesh import per_device, sharded_site_solve, to_device
 
 # FEL-style start grid for the per-site FEL pre-fit
 _FEL_GRID = np.array(
@@ -91,7 +95,8 @@ class MixtureSites:
     0 without background branches); ``weights`` ``[N, branches, K+1]``
     overrides :meth:`class_weights` (the forced EBF evaluations).
     ``fel(idx, p) -> [N]``: the FEL model, tested (alpha, beta_fg),
-    background (alpha, beta_bg)."""
+    background (alpha, beta_bg).  :meth:`on` gives the same likelihoods
+    built on another device (a block of a sharded solve)."""
 
     loglik: Callable
     fel: Callable
@@ -99,9 +104,16 @@ class MixtureSites:
     tested: torch.Tensor           # [branches] bool
     item_bytes: float              # working set of one mixture evaluation item
     fel_bytes: float               # ... of one FEL evaluation item
+    device: torch.device
+    rebuild: Callable              # device -> MixtureSites there, memoised
 
     def class_weights(self, p) -> torch.Tensor:
         return _class_weights(p, self.rate_classes, self.tested)
+
+    def on(self, device) -> "MixtureSites":
+        if canonical_device(device) == canonical_device(self.device):
+            return self
+        return self.rebuild(device)
 
 
 def _class_weights(p, k: int, tested: torch.Tensor) -> torch.Tensor:
@@ -184,8 +196,14 @@ def mixture_sites(
     s = model.n_states
     item_bytes = itemsize * (s * (8 * (data.tree.n_nodes + 1) + (k + 1) * 14 * s)
                              + (k + 1) * data.tree.n_branches)
+    @per_device
+    def rebuild(dev):
+        return mixture_sites(data, mgp.to(dev), dtype, spectral, k, per_site_multihit,
+                             None if states is None else to_device(states, dev))
+
     return MixtureSites(loglik=loglik, fel=fel_obj, rate_classes=k, tested=tested_t,
-                        item_bytes=item_bytes, fel_bytes=fel._site_bytes(data, dtype, s))
+                        item_bytes=item_bytes, fel_bytes=fel._site_bytes(data, dtype, s),
+                        device=device, rebuild=rebuild)
 
 
 def _specs(k: int, has_background: bool, mh_rates: Dict[str, float]):
@@ -265,8 +283,9 @@ def branch_ebfs(
     force each tested branch into each non-positive class c at the
     alternative fit ``alt`` ({parameter: [n], "lnl": [n]}, indexed by site
     row); posterior_+ = 1 - sum_c w_c L_c / L_mix.  Each (site, branch,
-    class) is one item of a batched forced evaluation, chunked by the
-    device's free memory (``chunk`` forces the items per chunk).
+    class) is one item of a batched forced evaluation, the items split over
+    the mesh that ``settings.mesh`` names and chunked by each block's share
+    of its device's free memory (``chunk`` forces the items per chunk).
     ``sites_idx``: the data patterns of ``alt``'s rows (default: all, in
     order).  Returns ``[n, tested]`` (fp64)."""
     k = sites.rate_classes
@@ -274,21 +293,26 @@ def branch_ebfs(
     device = alt["lnl"].device
     if sites_idx is None:
         sites_idx = torch.arange(n, device=device)
-    tested_t = torch.as_tensor(tested_idx, device=device)
     per_site = len(tested_idx) * (k - 1)
-    params = {key: v for key, v in alt.items() if key != "lnl"}
 
-    def solver(items):
-        row = items // per_site
-        rest = items % per_site
-        branch, cls = tested_t[rest // (k - 1)], rest % (k - 1)
-        p = {key: v[row] for key, v in params.items()}
-        weights = sites.class_weights(p)
-        weights[torch.arange(items.shape[0], device=device), branch] = torch.nn.functional.one_hot(
-            cls, k + 1).to(weights.dtype)
-        return {"lnl": sites.loglik(sites_idx[row], p, weights=weights)}
+    @per_device
+    def make_solver(dev):
+        sites_d, sites_idx_d = sites.on(dev), to_device(sites_idx, dev)
+        tested_t = torch.as_tensor(tested_idx, device=dev)
+        params = {key: to_device(v, dev) for key, v in alt.items() if key != "lnl"}
 
-    forced = chunked_site_solve(solver, n * per_site, sites.item_bytes, device, chunk=chunk)
+        def solver(items):
+            row = items // per_site
+            rest = items % per_site
+            branch, cls = tested_t[rest // (k - 1)], rest % (k - 1)
+            p = {key: v[row] for key, v in params.items()}
+            weights = sites_d.class_weights(p)
+            weights[torch.arange(items.shape[0], device=dev), branch] = \
+                torch.nn.functional.one_hot(cls, k + 1).to(weights.dtype)
+            return {"lnl": sites_d.loglik(sites_idx_d[row], p, weights=weights)}
+        return solver
+
+    forced = sharded_site_solve(make_solver, n * per_site, sites.item_bytes, device, chunk=chunk)
     forced = forced["lnl"].double().cpu().numpy().reshape(n, len(tested_idx), k - 1)
     w_all = _stick_weights(torch.stack([alt[f"w_{i}"] for i in range(1, k)], dim=-1))
     w_all = w_all.double().cpu().numpy()                                    # [n, K]
@@ -316,8 +340,17 @@ def site_pipeline(sites: MixtureSites, specs, mh_rates: Dict[str, float],
     fel_specs, meme_specs, null_specs = specs
     f64 = dict(dtype=torch.float64, device=device)
 
-    def solve(solver, item_bytes):
-        return chunked_site_solve(solver, n_items, item_bytes, device)
+    def solve(stage, item_bytes, inputs):
+        """``stage(sites, inputs, idx)`` over the items, split over the mesh,
+        with ``sites`` and ``inputs`` (a dict of tensors) on each block's
+        device."""
+        @per_device
+        def make_solver(dev):
+            sites_d = sites.on(dev)
+            inputs_d = {key: to_device(v, dev) for key, v in inputs.items()}
+            return lambda idx: stage(sites_d, inputs_d, idx)
+
+        return sharded_site_solve(make_solver, n_items, item_bytes, device)
 
     # -- stage 1: FEL ----------------------------------------------------------
     grid = {"alpha": torch.tensor(_FEL_GRID[:, 0], **f64),
@@ -327,7 +360,8 @@ def site_pipeline(sites: MixtureSites, specs, mh_rates: Dict[str, float],
     for key, val in mh_rates.items():
         grid[key] = torch.full((_FEL_GRID.shape[0],), val, **f64)
     common.progress("meme", "stage 1: per-site FEL fits")
-    fel_fit = solve(lambda idx: _fel_stage(sites, fel_specs, grid, idx), sites.fel_bytes)
+    fel_fit = solve(lambda sites_d, g, idx: _fel_stage(sites_d, fel_specs, g, idx),
+                    sites.fel_bytes, grid)
     fa, fb, fbg = (fel_fit[key].double() for key in ("alpha", "beta", "beta_bg"))
 
     # -- stage 2: the alternative, seeded per meme.handle_a_site ---------------
@@ -346,11 +380,12 @@ def site_pipeline(sites: MixtureSites, specs, mh_rates: Dict[str, float],
     for key, val in mh_rates.items():
         init[key] = torch.full_like(fa, val)
 
-    def alternative(idx):
-        starts = _candidate_starts(sites, idx, {key: v[idx] for key, v in init.items()}, fb[idx])
-        return _alternative_stage(sites, meme_specs, idx, starts)
+    def alternative(sites_d, inputs, idx):
+        starts = _candidate_starts(sites_d, idx,
+                                   {key: inputs[key][idx] for key in init}, inputs["_fb"][idx])
+        return _alternative_stage(sites_d, meme_specs, idx, starts)
 
-    alt = solve(alternative, sites.item_bytes)
+    alt = solve(alternative, sites.item_bytes, dict(init, _fb=fb))
 
     # -- stage 3: the null -----------------------------------------------------
     common.progress("meme", "stage 3: per-site null fits")
@@ -359,9 +394,9 @@ def site_pipeline(sites: MixtureSites, specs, mh_rates: Dict[str, float],
     # the null from the FEL-style blend of alternative alpha and beta+
     null_init["alpha"] = (torch.clamp_max(alt["alpha"], 100.0)
                           + 3.0 * torch.clamp_max(alt["beta_plus"], 100.0)) / 4.0
-    null = solve(lambda idx: _null_stage(sites, null_specs, idx,
-                                         {key: v[idx] for key, v in null_init.items()}),
-                 sites.item_bytes)
+    null = solve(lambda sites_d, inputs, idx: _null_stage(
+        sites_d, null_specs, idx, {key: v[idx] for key, v in inputs.items()}),
+        sites.item_bytes, null_init)
     return fel_fit, alt, null
 
 

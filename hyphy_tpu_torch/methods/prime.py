@@ -15,8 +15,11 @@ null (chi^2_1).
 
 The per-site fits are FEL's: grid starts, then one batched Nelder-Mead
 over every pattern for the full model (400 iterations) and one per
-property's null, warm-started from the full fit (250 iterations each), in
-as many chunks as the card's free memory asks.  The per-site route follows
+property's null, warm-started from the full fit (250 iterations each)
+(:func:`fit_sites`), the patterns split over the mesh that
+``settings.mesh`` names, each block from a host thread of its own with the
+objective built on its device, and on each device in as many chunks as the
+block's share of its free memory asks.  The per-site route follows
 the compute dtype as FEL's does: fp64 takes the spectral route (the JAX
 package's only route), fp32 (the card's default) the Taylor vector action,
 because the card's fp32 ``eigh`` loses ~1e-2 on 61-state generators.  At
@@ -42,8 +45,9 @@ from hyphy_tpu_torch.models.base import fill_diagonal_from_rows
 from hyphy_tpu_torch.models.parameters import ParamSpec
 from hyphy_tpu_torch.ops import expm as expm_ops
 from hyphy_tpu_torch.ops import pruning
-from hyphy_tpu_torch.optimize.batched import chunked_site_solve, grid_best_starts
+from hyphy_tpu_torch.optimize.batched import grid_best_starts
 from hyphy_tpu_torch.optimize.nelder_mead import vmapped_nelder_mead
+from hyphy_tpu_torch.parallel.mesh import per_device, sharded_site_solve, to_device
 
 # Atchley et al. 2005 five-factor amino-acid property scores
 # (MG_REV_PROPERTIES.bf:30-141; PNAS 102(18):6395, Table 2), keyed by the
@@ -157,6 +161,72 @@ def site_log_likelihood(
     return loglik
 
 
+def fit_sites(data: common.LoadedData, mg: common.MG94Fit,
+              dists: torch.Tensor) -> Dict[str, np.ndarray]:
+    """The per-site stage: every pattern's full property model from the
+    best of four (alpha, beta) starts, then each property's null (lambda_k
+    := 0) warm-started from it; the patterns split over the mesh that
+    ``settings.mesh`` names.  ``dists``: the ``[P, S, S]`` property
+    distances.  Returns numpy {full_lnl, alpha, beta, lambda_k, null_k}."""
+    device = mg.model.device
+    has_background = bool((~data.tested_branches).any())
+    dtype = settings.likelihood_dtype(device)
+    n_props = dists.shape[0]
+    specs = {
+        "alpha": ParamSpec(init=1.0, lower=0.0, upper=10000.0),
+        "beta": ParamSpec(init=1.0, lower=0.0, upper=10000.0),
+    }
+    for k in range(n_props):
+        specs[f"lambda_{k}"] = ParamSpec(init=0.1, lower=-10.0, upper=10.0)
+    if has_background:
+        specs["beta_bg"] = ParamSpec(init=1.0, lower=0.0, upper=10000.0)
+    start_ab = np.array([(1.0, 0.5), (1.0, 1.0), (0.5, 2.0), (2.0, 0.25)])
+
+    @per_device
+    def make_solver(dev):
+        """The objectives and the fit of every item, on ``dev``."""
+        f64 = dict(dtype=torch.float64, device=dev)
+        loglik = site_log_likelihood(data, mg.to(dev), to_device(dists, dev), dtype,
+                                     spectral=dtype == torch.float64)
+        grid = {"alpha": torch.as_tensor(start_ab[:, 0], **f64),
+                "beta": torch.as_tensor(start_ab[:, 1], **f64)}
+        for k in range(n_props):
+            grid[f"lambda_{k}"] = torch.full((len(start_ab),), 0.1, **f64)
+        if has_background:
+            grid["beta_bg"] = torch.as_tensor(start_ab[:, 1], **f64)
+        ones_mask = torch.ones(n_props, **f64)
+
+        def fit_all_sites(idx):
+            def full_obj(i, p):
+                return loglik(i, p, ones_mask)
+
+            starts, _ = grid_best_starts(full_obj, grid, idx)
+            full_params, full_lnl = vmapped_nelder_mead(full_obj, specs, starts, idx,
+                                                        max_iterations=400)
+            out = {"full_lnl": full_lnl, "alpha": full_params["alpha"],
+                   "beta": full_params["beta"]}
+            for k in range(n_props):
+                out[f"lambda_{k}"] = full_params[f"lambda_{k}"]
+            # per-property nulls: lambda_k := 0, warm-started from the full fit
+            for k in range(n_props):
+                mask = ones_mask.clone()
+                mask[k] = 0.0
+
+                def null_obj(i, p, mask=mask):
+                    return loglik(i, p, mask)
+
+                _, out[f"null_{k}"] = vmapped_nelder_mead(null_obj, specs, full_params, idx,
+                                                          max_iterations=250)
+            return out
+        return fit_all_sites
+
+    n_groups = 2 if has_background else 1
+    # the property modifier and a deeper ladder on top of FEL's working set
+    site_bytes = _site_bytes(data, dtype, mg.model.n_states, 3 * n_groups)
+    fits = sharded_site_solve(make_solver, data.codon_filter.n_patterns, site_bytes, device)
+    return {k: v.detach().cpu().numpy().astype(np.float64) for k, v in fits.items()}
+
+
 @dataclasses.dataclass
 class PRIMEResult:
     json: Dict
@@ -191,63 +261,12 @@ def run(
     common.progress("prime", f"MG94 lnL {mg.loglik:.3f}; per-site property fits")
 
     filt = data.codon_filter
-    has_background = bool((~data.tested_branches).any())
-    n_patterns = filt.n_patterns
-    dtype = settings.likelihood_dtype(device)
-    f64 = dict(dtype=torch.float64, device=device)
     dists = torch.as_tensor(
-        np.stack(property_distance_tensors(data.genetic_code, properties)), **f64)
+        np.stack(property_distance_tensors(data.genetic_code, properties)),
+        dtype=torch.float64, device=device)
     prop_names = list(properties)
     n_props = len(prop_names)
-    loglik = site_log_likelihood(data, mg, dists, dtype, spectral=dtype == torch.float64)
-
-    specs = {
-        "alpha": ParamSpec(init=1.0, lower=0.0, upper=10000.0),
-        "beta": ParamSpec(init=1.0, lower=0.0, upper=10000.0),
-    }
-    for k in range(n_props):
-        specs[f"lambda_{k}"] = ParamSpec(init=0.1, lower=-10.0, upper=10.0)
-    if has_background:
-        specs["beta_bg"] = ParamSpec(init=1.0, lower=0.0, upper=10000.0)
-
-    start_ab = np.array([(1.0, 0.5), (1.0, 1.0), (0.5, 2.0), (2.0, 0.25)])
-    grid = {"alpha": torch.as_tensor(start_ab[:, 0], **f64),
-            "beta": torch.as_tensor(start_ab[:, 1], **f64)}
-    for k in range(n_props):
-        grid[f"lambda_{k}"] = torch.full((len(start_ab),), 0.1, **f64)
-    if has_background:
-        grid["beta_bg"] = torch.as_tensor(start_ab[:, 1], **f64)
-
-    ones_mask = torch.ones(n_props, **f64)
-
-    def fit_all_sites(idx):
-        def full_obj(i, p):
-            return loglik(i, p, ones_mask)
-
-        starts, _ = grid_best_starts(full_obj, grid, idx)
-        full_params, full_lnl = vmapped_nelder_mead(full_obj, specs, starts, idx,
-                                                    max_iterations=400)
-        out = {"full_lnl": full_lnl, "alpha": full_params["alpha"],
-               "beta": full_params["beta"]}
-        for k in range(n_props):
-            out[f"lambda_{k}"] = full_params[f"lambda_{k}"]
-        # per-property nulls: lambda_k := 0, warm-started from the full fit
-        for k in range(n_props):
-            mask = ones_mask.clone()
-            mask[k] = 0.0
-
-            def null_obj(i, p, mask=mask):
-                return loglik(i, p, mask)
-
-            _, out[f"null_{k}"] = vmapped_nelder_mead(null_obj, specs, full_params, idx,
-                                                      max_iterations=250)
-        return out
-
-    n_groups = 2 if has_background else 1
-    # the property modifier and a deeper ladder on top of FEL's working set
-    site_bytes = _site_bytes(data, dtype, mg.model.n_states, 3 * n_groups)
-    fits = chunked_site_solve(fit_all_sites, n_patterns, site_bytes, device)
-    fits = {k: v.detach().cpu().numpy().astype(np.float64) for k, v in fits.items()}
+    fits = fit_sites(data, mg, dists)
     common.progress("prime", "per-site fits done")
     full_lnl = fits["full_lnl"]
     lambdas = np.stack([fits[f"lambda_{k}"] for k in range(n_props)], axis=1)   # [N, P]

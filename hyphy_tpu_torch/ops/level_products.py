@@ -44,12 +44,14 @@ version on either device, as the JAX package's custom VJP is
 Under ``create_graph`` it is taken on the saved inputs with a graph, so a
 Hessian through the pruning (``LikelihoodFunction.covariance_matrix``) is
 the plain version's.
-``level_products.launches`` counts kernel launches.
+``level_products.launches`` counts kernel launches, under a lock, since
+the blocks of a sharded per-site solve launch from threads of their own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -61,6 +63,8 @@ _THREADS = 256
 _PATTERNS_PER_THREAD = 8
 # states per thread, as csrc/level_products.cu instantiates the kernel
 _STATES_PER_THREAD = {torch.float32: 8, torch.float64: 4}
+# the blocks of a sharded per-site solve launch from threads of their own
+_count_lock = threading.Lock()
 
 
 def _launch_plan(w: int, k: int, p: int, s: int, dtype: torch.dtype):
@@ -124,7 +128,8 @@ def _launch(cc: torch.Tensor, cp: torch.Tensor) -> torch.Tensor:
         err = fn(cc.data_ptr(), cp.data_ptr(), out.data_ptr(), w, k, p, s, *plan, stream)
     if err != 0:
         raise RuntimeError(f"level_products kernel launch failed: CUDA error {err}")
-    level_products.launches += 1
+    with _count_lock:
+        level_products.launches += 1
     return out
 
 

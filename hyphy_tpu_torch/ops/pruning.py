@@ -623,6 +623,17 @@ def single_site_log_likelihood_taylor(
     n_sites, _, states = leaf_vectors.shape
     dtype, device = leaf_vectors.dtype, leaf_vectors.device
     n_groups, n_ladder = m2p.shape[1], m2p.shape[2]
+    if n_sites == 1:
+        # a batch of one takes another bmm kernel on the card, which rounds
+        # apart from the batched one, and a site's lnL must not depend on
+        # its batch (a one-item block or chunk of a solve): the item runs
+        # twice and the first copy is kept
+        def two(x):
+            return None if x is None else torch.cat([x, x])
+
+        return single_site_log_likelihood_taylor(
+            two(qn), two(m2p), two(r), two(j), group_of_branch, n_terms, two(leaf_vectors),
+            root_freqs, data, two(mix_weights))[:1]
     if mix_weights is not None:
         return _taylor_mixture(qn, m2p, r, j, n_terms, leaf_vectors, root_freqs, data,
                                mix_weights)

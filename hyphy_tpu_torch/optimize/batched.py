@@ -2,8 +2,8 @@
 
 Counterpart of ``grid_best_starts`` in ``hyphy_tpu/optimize/batched.py``
 (the reference's OPTIMIZATION_START_GRID semantics, ``FEL.bf:609-734``),
-and :func:`chunked_site_solve`, the solve of one device, which
-``parallel/mesh.py::sharded_site_solve`` runs on each device of a mesh.
+and :func:`chunked_site_solve`, the solve of one block, which
+``parallel/mesh.py::sharded_site_solve`` runs for each block of a mesh.
 ``vmapped_maximize`` has no caller in the ported methods and is not
 ported.
 """
@@ -47,14 +47,16 @@ def grid_best_starts(
 _FREE_MEMORY_SHARE = 0.5
 
 
-def site_chunk(n_items: int, bytes_per_item: float, device) -> int:
+def site_chunk(n_items: int, bytes_per_item: float, device, free: Optional[float] = None) -> int:
     """Items per chunk of a site solve on ``device``: on the card, as many
-    as half its free memory holds at ``bytes_per_item`` each; on the CPU,
-    every item at once."""
+    as half of ``free`` holds at ``bytes_per_item`` each (``free``: the
+    bytes of the card's free memory that this solve may count on, by
+    default all of it, read now); on the CPU, every item at once."""
     device = torch.device(device)
     if device.type != "cuda":
         return max(n_items, 1)
-    free, _ = torch.cuda.mem_get_info(device)
+    if free is None:
+        free, _ = torch.cuda.mem_get_info(device)
     return max(1, min(n_items, int(_FREE_MEMORY_SHARE * free // max(bytes_per_item, 1))))
 
 
@@ -64,19 +66,25 @@ def chunked_site_solve(
     bytes_per_item: float,
     device,
     chunk: Optional[int] = None,
+    free: Optional[float] = None,
+    max_chunk: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run ``solver(idx [n]) -> {k: [n, ...]}`` over consecutive chunks of
     ``range(n_items)`` and join the outputs along axis 0.
 
-    The solve of one device: the batch is split in time, in chunks of
-    :func:`site_chunk` items (``parallel/mesh.py::sharded_site_solve``
-    splits FEL's across the devices of a named mesh first, and runs this
-    on each).  A batched per-site solver whose items are independent —
-    grid starts and the Nelder-Mead, which freezes converged items by mask
-    — gives every item the same result whatever the chunking.  ``chunk`` forces the items per chunk (to hold a
-    split against one batch)."""
+    The solve of one block: ``parallel/mesh.py::sharded_site_solve`` splits
+    the items over the devices of a mesh first and runs this on each, with
+    the block's share ``free`` of its device's free memory.  The batch is
+    split in time, in chunks of :func:`site_chunk` items (``chunk`` forces
+    the items per chunk, to hold a split against one batch), never more
+    than ``max_chunk``.  A batched per-site solver whose items are
+    independent — grid starts and the Nelder-Mead, which freezes converged
+    items by mask — gives every item the same result whatever the
+    chunking."""
     if chunk is None:
-        chunk = site_chunk(n_items, bytes_per_item, device)
+        chunk = site_chunk(n_items, bytes_per_item, device, free)
+    if max_chunk is not None:
+        chunk = max(1, min(chunk, max_chunk))
     parts = [
         solver(torch.arange(lo, min(lo + chunk, n_items), device=device))
         for lo in range(0, n_items, chunk)

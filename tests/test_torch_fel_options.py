@@ -156,7 +156,7 @@ def test_chunked_solve_matches_one_batch(tiny, runs, monkeypatch):
     n_patterns = res.data.codon_filter.n_patterns
     assert n_patterns > 6
     one, _ = fel.solve_partition(res.data, res.mg94)
-    monkeypatch.setattr(batched, "site_chunk", lambda n_items, bytes_per_item, device: 3)
+    monkeypatch.setattr(batched, "site_chunk", lambda n_items, bytes_per_item, device, free=None: 3)
     chunked, _ = fel.solve_partition(res.data, res.mg94)
     np.testing.assert_array_equal(chunked, one)
     np.testing.assert_array_equal(one, res.site_table)

@@ -7,7 +7,8 @@
   that every level's K1 launch stays within its node rows at 1000 taxa.
 * The copied grid posteriors fed the JAX package's own conditionals.
 * ``grid_site_loglik_matrix`` and the whole FUBAR and B-STILL JSONs, with
-  the JAX run's GTR fit carried across, on a 5 x 5 grid; a grid pass on the
+  the JAX run's GTR fit carried across, on a 5 x 5 grid, the matrix also
+  with the grid split over a mesh of three blocks; a grid pass on the
   card's fp32 route against the fp64 one.
 
 The fixture is an alignment simulated along an 8-taxon tree with two codons
@@ -180,22 +181,44 @@ def _wide_grid_pruning(n_patterns=2):
     return tree, gp
 
 
-def test_grid_chunk_capped_at_k1_node_limit():
-    """At 1000 taxa the grid chunk stops at 65535 // 320 = 204 points, what
-    the free memory would allow (every point on the CPU) or a forced chunk
-    notwithstanding, so that every level's launch stays within K1's node
-    rows; the per-point working set counts the kept levels and the
-    gathered children (1745 CLV rows of patterns x S at this tree)."""
+@pytest.mark.parametrize("mesh, n_points, forced, calls", [
+    (None, 400, None, [196, 204]),
+    (None, 400, 400, [196, 204]),
+    (None, 400, 1000, [196, 204]),
+    (None, 400, 150, [100, 150, 150]),
+    (None, 100, None, [100]),
+    (("cpu",) * 3, 700, None, [29, 29, 30, 204, 204, 204]),
+])
+def test_grid_chunk_capped_at_k1_node_limit(mesh, n_points, forced, calls, monkeypatch):
+    """At 1000 taxa every block of a grid pass prunes at most 65535 // 320 =
+    204 grid points per call, what the free memory would allow (every point
+    on the CPU) or a forced chunk notwithstanding, so that every level's
+    launch stays within K1's node rows: one block, or three over a mesh of
+    the CPU (234, 233 and 233 points, each cut at 204).  The propagators
+    and the pruning are stubbed, the pruning to record its calls' grid
+    points.  The per-point working set
+    counts the kept levels and the gathered children (1745 CLV rows of
+    patterns x S at this tree)."""
     tree, gp = _wide_grid_pruning()
     widest = max(p.child_branch.shape[0] for p in gp.schedule.plans)
     assert widest == 320 and pruning.max_grid_points(gp.schedule) == 204
-    for forced in (None, 400, 1000):
-        assert fubar.grid_chunk(gp, 400, "cpu", forced) == 204
-    assert fubar.grid_chunk(gp, 400, "cpu", 150) == 150
-    assert fubar.grid_chunk(gp, 100, "cpu") == 100
-    assert max(p.child_branch.shape[0] for p in gp.schedule.plans) * 204 <= 65535
     assert gp.point_bytes == 1745 * 2 * 4 * 8
     assert gp.point_bytes / (2 * 4 * 8) > tree.n_nodes - tree.n_leaves
+    seen = []
+
+    def recorded(p, leaves, freqs, schedule):
+        seen.append(p.shape[0])
+        return torch.zeros(p.shape[0], leaves.shape[1], dtype=p.dtype)
+
+    monkeypatch.setattr(settings, "mesh", mesh)
+    monkeypatch.setattr(fubar.GridPruning, "propagators",
+                        lambda self, points, times: torch.zeros(points.shape[0], 1))
+    monkeypatch.setattr(pruning, "site_log_likelihoods", recorded)
+    grid = torch.full((n_points, 2), 0.5, dtype=torch.float64)
+    times = torch.full((gp.schedule.n_nodes - 1,), 0.1, dtype=torch.float64)
+    sll = fubar.grid_pass(gp, grid, times, chunk=forced)
+    assert sll.shape == (n_points, 2)
+    assert sorted(seen) == calls and max(seen) * widest <= 65535
 
 
 def test_grid_pass_past_k1_node_limit():
@@ -272,10 +295,27 @@ def test_grid_matrix_matches(fubar_runs, jax_grid):
     3.5): a pattern that needs such a path gets a value of round-off on
     either side, held here only to lie 10 lnL units or more below the
     pattern's best grid point in both (posterior weight < 5e-5)."""
-    ours, ref = fubar_runs
+    ours, _ = fubar_runs
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tcommon, "fit_gtr", lambda data, precision=1e-5: ours.gtr)
         sll, _, rs, rn = fubar.grid_site_loglik_matrix(ours.data, ours.grid)
+    _hold_grid_matrix(ours, sll, rs, rn, jax_grid)
+
+
+def test_grid_matrix_sharded_matches(fubar_runs, jax_grid):
+    """The two passes with the grid points split over a mesh of three
+    blocks (``settings.mesh``, each block from a host thread of its own)
+    against the JAX package's passes under its 8-device mesh
+    (``tests/conftest.py``), held as above."""
+    ours, _ = fubar_runs
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tcommon, "fit_gtr", lambda data, precision=1e-5: ours.gtr)
+        mp.setattr(settings, "mesh", ("cpu",) * 3)
+        sll, _, rs, rn = fubar.grid_site_loglik_matrix(ours.data, ours.grid)
+    _hold_grid_matrix(ours, sll, rs, rn, jax_grid)
+
+
+def _hold_grid_matrix(ours, sll, rs, rn, jax_grid):
     want, _, jrs, jrn = jax_grid
     want = np.asarray(want)
     assert sll.shape == want.shape == (GRID * GRID, ours.data.codon_filter.n_patterns)

@@ -150,9 +150,11 @@ def test_sharded_site_solve_joins_in_item_order(monkeypatch):
 
     monkeypatch.setattr(settings, "mesh", THREE)
     out = mesh_mod.sharded_site_solve(make_solver, 10, 1.0, "cpu")
-    assert seen == [[0, 1, 2, 3], [4, 5, 6], [7, 8, 9]]
+    # the blocks run from threads of their own, in no set order
+    assert sorted(seen) == [[0, 1, 2, 3], [4, 5, 6], [7, 8, 9]]
     np.testing.assert_array_equal(out["sq"].numpy(), np.arange(10) ** 2)
-    assert out["row"].shape == (10, 2)
+    np.testing.assert_array_equal(out["row"].numpy(),
+                                  np.stack([np.arange(10), -np.arange(10)], axis=1))
 
 
 # -- the gene likelihood ----------------------------------------------------------
@@ -401,7 +403,7 @@ def test_fel_options_sharded_equal_the_same_blocks_chunked(tiny, monkeypatch):
     sharded, headers = fel.solve_partition(data, mg, srv=False, ci=True, resample=2,
                                            resample_seed=5)
     monkeypatch.setattr(settings, "mesh", None)
-    monkeypatch.setattr(batched, "site_chunk", lambda n_items, bytes_per_item, device: 7)
+    monkeypatch.setattr(batched, "site_chunk", lambda n_items, bytes_per_item, device, free=None: 7)
     chunked, _ = fel.solve_partition(data, mg, srv=False, ci=True, resample=2, resample_seed=5)
     assert [h[0] for h in headers][6:] == ["dN/dS LB", "dN/dS MLE", "dN/dS UB", "p-asmp"]
     np.testing.assert_array_equal(sharded, chunked)
