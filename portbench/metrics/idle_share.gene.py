@@ -1,0 +1,8 @@
+"""idle_share.gene: percent of the traced window of a gene cell in which no
+operation ran on the device (torch.profiler)."""
+
+
+def read(ctx):
+    if ctx.trace is None or not any(c.kind == "gene" for c in ctx.window.calls):
+        return None
+    return 100.0 * ctx.trace.idle_share
